@@ -1,0 +1,110 @@
+"""Quaternion / rotation helpers on batched tensors, xyzw layout.
+
+PyTorch counterparts of the functions of `isaacgymenv_tpu/ops/maths.py` that
+the physics step and the Anymal task use.  Every function accepts arbitrary
+leading batch dimensions: quaternions are `(..., 4)`, vectors `(..., 3)`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def normalize(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+    """Unit-normalize along the last axis."""
+    return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=eps)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a*b."""
+    x1, y1, z1, w1 = a.unbind(-1)
+    x2, y2, z2, w2 = b.unbind(-1)
+    return torch.stack(
+        [
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (the inverse of a unit quaternion)."""
+    return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
+
+
+def quat_unit(q: torch.Tensor) -> torch.Tensor:
+    return normalize(q)
+
+
+def quat_apply(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by q: v' = v + 2w (u x v) + u x (2 u x v)."""
+    u, w = q[..., :3], q[..., 3:4]
+    u, v = torch.broadcast_tensors(u, v)
+    t = 2.0 * torch.linalg.cross(u, v, dim=-1)
+    return v + w * t + torch.linalg.cross(u, t, dim=-1)
+
+
+quat_rotate = quat_apply
+
+
+def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return quat_apply(quat_conjugate(q), v)
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) -> (..., 3, 3)."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    r = torch.stack(
+        [
+            1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
+            2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
+            2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4), branch-free Shepperd variant."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12))
+
+    qw0 = safe_sqrt(1.0 + tr) / 2.0
+    c0 = torch.stack([(m21 - m12) / (4 * qw0), (m02 - m20) / (4 * qw0), (m10 - m01) / (4 * qw0), qw0], -1)
+    qx1 = safe_sqrt(1.0 + m00 - m11 - m22) / 2.0
+    c1 = torch.stack([qx1, (m01 + m10) / (4 * qx1), (m02 + m20) / (4 * qx1), (m21 - m12) / (4 * qx1)], -1)
+    qy2 = safe_sqrt(1.0 - m00 + m11 - m22) / 2.0
+    c2 = torch.stack([(m01 + m10) / (4 * qy2), qy2, (m12 + m21) / (4 * qy2), (m02 - m20) / (4 * qy2)], -1)
+    qz3 = safe_sqrt(1.0 - m00 - m11 + m22) / 2.0
+    c3 = torch.stack([(m02 + m20) / (4 * qz3), (m12 + m21) / (4 * qz3), qz3, (m10 - m01) / (4 * qz3)], -1)
+
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 >= m11) & (m00 >= m22))[..., None]
+    cond2 = (m11 >= m22)[..., None]
+    q = torch.where(cond0, c0, torch.where(cond1, c1, torch.where(cond2, c2, c3)))
+    return quat_unit(q)
+
+
+def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, dt: float) -> torch.Tensor:
+    """Integrate a unit quaternion by a world-frame angular velocity over dt."""
+    angle = torch.linalg.norm(omega_world, dim=-1, keepdim=True)
+    half = 0.5 * angle * dt
+    k = torch.where(
+        angle > 1e-9,
+        torch.sin(half) / torch.clamp(angle, min=1e-9),
+        torch.full_like(angle, 0.5 * dt),
+    )
+    dq = torch.cat([omega_world * k, torch.cos(half)], dim=-1)
+    return quat_unit(quat_mul(dq, q))

@@ -1,0 +1,291 @@
+"""The fused physics substep: one CUDA kernel for all substeps of a control step.
+
+Replaces the TPU kernel `isaacgymenv_tpu/physics/fused.py:build_fused_substep`
+for the scenes that `fused_structural_ok` accepts.  The kernel
+(`csrc/fused_substep.cu`, one thread per env) is one fixed source: the model
+arrives as data, a `FusedModel` table that `build_tables` fills once per
+model and device.  It is built with one `nvcc` call at first use into the
+git-ignored `_build/` directory and loaded with ctypes.
+
+`fused_substep` is the wrapper: a CUDA state launches the kernel (or raises),
+a CPU state runs `fused_substep_plain`, the eager port of the XLA path
+(`engine._substep` looped `substeps` times).  `fused_substep.launches` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from isaacgymenv_tpu_torch.physics import engine
+from isaacgymenv_tpu_torch.physics.types import (
+    JT_FIXED,
+    JT_FREE,
+    JT_PRISMATIC,
+    JT_REVOLUTE,
+    SimModel,
+)
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "csrc", "fused_substep.cu")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# compile-time caps of csrc/fused_substep.cu (FS_MAX_*)
+MAX_BODIES, MAX_DOFS, MAX_GEOMS, MAX_Q, MAX_V = 32, 32, 256, 64, 64
+
+
+class FusedModel(ctypes.Structure):
+    """Field-for-field mirror of `struct FusedModel` in csrc/fused_substep.cu."""
+
+    _fields_ = [
+        ("nb", ctypes.c_int), ("nq", ctypes.c_int), ("nv", ctypes.c_int),
+        ("nd", ctypes.c_int), ("ng", ctypes.c_int),
+        ("parent", ctypes.c_int * MAX_BODIES),
+        ("jtype", ctypes.c_int * MAX_BODIES),
+        ("q_adr", ctypes.c_int * MAX_BODIES),
+        ("v_adr", ctypes.c_int * MAX_BODIES),
+        ("body_dof", ctypes.c_int * MAX_BODIES),
+        ("dof_body", ctypes.c_int * MAX_DOFS),
+        ("dof_mode", ctypes.c_int * MAX_DOFS),
+        ("dof_haslim", ctypes.c_int * MAX_DOFS),
+        ("geom_body", ctypes.c_int * MAX_GEOMS),
+        ("R_tree", ctypes.c_float * (MAX_BODIES * 9)),
+        ("p_tree", ctypes.c_float * (MAX_BODIES * 3)),
+        ("axis", ctypes.c_float * (MAX_BODIES * 3)),
+        ("inertia", ctypes.c_float * (MAX_BODIES * 36)),
+        ("dof_kp", ctypes.c_float * MAX_DOFS),
+        ("dof_kd", ctypes.c_float * MAX_DOFS),
+        ("dof_lower", ctypes.c_float * MAX_DOFS),
+        ("dof_upper", ctypes.c_float * MAX_DOFS),
+        ("dof_effort", ctypes.c_float * MAX_DOFS),
+        ("dof_maxvel", ctypes.c_float * MAX_DOFS),
+        ("dof_armature", ctypes.c_float * MAX_DOFS),
+        ("dof_friction", ctypes.c_float * MAX_DOFS),
+        ("geom_off", ctypes.c_float * (MAX_GEOMS * 3)),
+        ("geom_r", ctypes.c_float * MAX_GEOMS),
+        ("geom_mu", ctypes.c_float * MAX_GEOMS),
+        ("geom_meff", ctypes.c_float * MAX_GEOMS),
+        ("geom_meff_el", ctypes.c_float * MAX_GEOMS),
+        ("gravity", ctypes.c_float * 3),
+        ("kn", ctypes.c_float), ("kd", ctypes.c_float), ("kt", ctypes.c_float),
+        ("limit_k", ctypes.c_float), ("limit_d", ctypes.c_float), ("fric_eps", ctypes.c_float),
+        ("max_angvel", ctypes.c_float), ("max_linvel", ctypes.c_float),
+    ]
+
+
+def fused_structural_ok(model: SimModel, num_envs: int) -> bool:
+    """True when the scene's joints and sizes fit the kernel; anything else
+    takes the plain path.  Features neither path has yet (terrain, pairs,
+    sensors, ...) are refused before this by `engine._check_supported`."""
+    if num_envs < 1:
+        return False
+    if any(jt not in (JT_FREE, JT_REVOLUTE, JT_PRISMATIC, JT_FIXED) for jt in model.jtype):
+        return False
+    # free joints only at actor roots: the ABA inward pass ends there
+    if any(jt == JT_FREE and par >= 0 for jt, par in zip(model.jtype, model.parent)):
+        return False
+    return (0 < model.nd <= MAX_DOFS and model.nb <= MAX_BODIES and model.ng <= MAX_GEOMS
+            and model.nq <= MAX_Q and model.nv <= MAX_V)
+
+
+def _spatial_inertia64(mass, com, inertia_com) -> np.ndarray:
+    c = np.asarray(com, np.float64)
+    cx = np.array([[0, -c[2], c[1]], [c[2], 0, -c[0]], [-c[1], c[0], 0.0]])
+    I = np.zeros((6, 6))
+    I[:3, :3] = inertia_com + mass * cx @ cx.T
+    I[:3, 3:] = mass * cx
+    I[3:, :3] = mass * cx.T
+    I[3:, 3:] = mass * np.eye(3)
+    return I
+
+
+def _quat_to_R64(q) -> np.ndarray:
+    x, y, z, w = (float(v) for v in q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def pack_model(model: SimModel) -> FusedModel:
+    """Fill the kernel's model table (host side).  Rotations and spatial
+    inertias are formed in float64 and rounded once, as the TPU kernel bakes
+    its constants."""
+    c = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    m = FusedModel()
+    m.nb, m.nq, m.nv, m.nd, m.ng = model.nb, model.nq, model.nv, model.nd, model.ng
+    body_dof = [-1] * model.nb
+    for d, b in enumerate(model.dof_body):
+        body_dof[b] = d
+    for name, vals in (
+        ("parent", model.parent), ("jtype", model.jtype), ("q_adr", model.q_adr),
+        ("v_adr", model.v_adr), ("body_dof", body_dof), ("dof_body", model.dof_body),
+        ("dof_mode", c(model.dof_drive_mode)), ("dof_haslim", c(model.dof_has_limit)),
+        ("geom_body", model.geom_body),
+    ):
+        getattr(m, name)[: len(vals)] = [int(v) for v in vals]
+    mass, com, inert = c(model.body_mass), c(model.body_com), c(model.body_inertia)
+    joint_quat = c(model.joint_quat)
+    floats = {
+        "R_tree": np.stack([_quat_to_R64(joint_quat[i]) for i in range(model.nb)]),
+        "p_tree": c(model.joint_pos),
+        "axis": c(model.joint_axis),
+        "inertia": np.stack([
+            _spatial_inertia64(float(mass[i]), com[i], inert[i].astype(np.float64))
+            for i in range(model.nb)
+        ]),
+        "dof_kp": c(model.dof_stiffness), "dof_kd": c(model.dof_damping),
+        "dof_lower": c(model.dof_lower), "dof_upper": c(model.dof_upper),
+        "dof_effort": c(model.dof_effort), "dof_maxvel": c(model.dof_maxvel),
+        "dof_armature": c(model.dof_armature), "dof_friction": c(model.dof_friction),
+        "geom_off": c(model.geom_offset), "geom_r": c(model.geom_radius),
+        "geom_mu": c(model.geom_friction), "geom_meff": c(model.geom_meff),
+        "geom_meff_el": c(model.geom_meff if model.geom_meff_el is None else model.geom_meff_el),
+        "gravity": c(model.gravity),
+    }
+    for name, arr in floats.items():
+        flat = np.asarray(arr, np.float32).ravel()
+        getattr(m, name)[: flat.size] = flat.tolist()
+    m.kn = float(model.contact_stiffness)
+    m.kd = float(model.contact_damping)
+    m.kt = float(model.tangential_stiffness)
+    m.limit_k, m.limit_d = engine._LIMIT_STIFFNESS, engine._LIMIT_DAMPING
+    m.fric_eps = engine._FRICTION_VEL_EPS
+    m.max_angvel, m.max_linvel = engine._MAX_ROOT_ANGVEL, engine._MAX_ROOT_LINVEL
+    return m
+
+
+@dataclass
+class FusedTables:
+    """A model and its kernel table on one device."""
+
+    model: SimModel
+    table: torch.Tensor  # uint8 bytes of a FusedModel, on the model's device
+
+
+def build_tables(model: SimModel, device) -> FusedTables:
+    raw = bytes(pack_model(model))
+    table = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+    return FusedTables(model=model.to(device), table=table)
+
+
+def tables_for(model: SimModel, device) -> FusedTables:
+    """`build_tables`, cached on the model per device."""
+    key = str(torch.device(device))
+    if key not in model.fused_cache:
+        model.fused_cache[key] = build_tables(model, device)
+    return model.fused_cache[key]
+
+
+def fused_substep_plain(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float, substeps: int):
+    """The kernel's plain version: `engine._substep` looped `substeps` times.
+
+    Returns (q, qd, dof_force, contact_force, contact_torque, slip_g)."""
+    ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
+    return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, h, substeps)
+
+
+def _check(name: str, t: torch.Tensor, shape, device) -> None:
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"fused_substep: {name} must be float32 {tuple(shape)} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+
+
+def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float, substeps: int):
+    """All `substeps` substeps of one control step; same outputs as
+    `fused_substep_plain`.  A CUDA `q` launches the kernel; a CPU `q` runs the
+    plain version."""
+    if q.device.type == "cpu":
+        return fused_substep_plain(tables, q, qd, pos_target, vel_target, effort, slip_g, h, substeps)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_substep: unsupported device {q.device}")
+    model = tables.model
+    n, dev = q.shape[0], q.device
+    if tables.table.device != dev:
+        raise ValueError(f"fused_substep: tables on {tables.table.device}, state on {dev}")
+    _check("q", q, (n, model.nq), dev)
+    _check("qd", qd, (n, model.nv), dev)
+    for name, t in (("pos_target", pos_target), ("vel_target", vel_target), ("effort", effort)):
+        _check(name, t, (n, model.nd), dev)
+    _check("slip_g", slip_g, (n, model.ng, 3), dev)
+
+    # env-minor copies: element (k, env) at k * n + env
+    qT = q.t().contiguous()
+    qdT = qd.t().contiguous()
+    tgtT = pos_target.t().contiguous()
+    vtgT = vel_target.t().contiguous()
+    effT = effort.t().contiguous()
+    slipT = slip_g.reshape(n, model.ng * 3).t().contiguous()
+    dof_force = torch.empty((model.nd, n), dtype=torch.float32, device=dev)
+    cf = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
+    ct = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
+    lib = _library()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fused_substep_launch(
+            ptr(tables.table), ptr(qT), ptr(qdT), ptr(tgtT), ptr(vtgT), ptr(effT),
+            ptr(slipT), ptr(dof_force), ptr(cf), ptr(ct),
+            n, float(h), float(h * h), int(substeps), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_substep kernel launch failed: CUDA error {err}")
+    fused_substep.launches += 1
+    return (
+        qT.t().contiguous(),
+        qdT.t().contiguous(),
+        dof_force.t().contiguous(),
+        cf.t().contiguous().view(n, model.nb, 3),
+        ct.t().contiguous().view(n, model.nb, 3),
+        slipT.t().contiguous().view(n, model.ng, 3),
+    )
+
+
+fused_substep.launches = 0
+
+
+def build_library() -> tuple[str, float, str]:
+    """Compile csrc/fused_substep.cu with one nvcc call unless an up-to-date
+    build exists.  Returns (library path, build seconds, nvcc output)."""
+    lib_path = os.path.join(BUILD_DIR, "libfused_substep.so")
+    if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= os.path.getmtime(SOURCE):
+        return lib_path, 0.0, ""
+    nvcc = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the fused_substep kernel needs the CUDA toolkit")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib_path)
+    return lib_path, seconds, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build_library()[0])
+    fn = lib.fused_substep_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                                             ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
