@@ -150,9 +150,9 @@ class Anymal(TaskEnv):
         )
 
     # ------------------------------------------------------------------
-    def _make_control(self, state, actions):
+    def _make_control(self, state, actions, draws):
         ctrl = engine.Control.zero(self.model, actions.shape[0])
-        return dataclasses.replace(ctrl, pos_target=self.action_scale * actions + self.default_dof_pos)
+        return dataclasses.replace(ctrl, pos_target=self.action_scale * actions + self.default_dof_pos), state
 
     def _post_physics(self, state, actions):
         return dataclasses.replace(state, ts={**state.ts, "actions": actions})

@@ -8,10 +8,11 @@ done by the PREVIOUS step -> obs -> reward and new done flags ->
 the terminal obs with done=1, and the next step returns the first obs of the
 new episode.
 
-Random numbers: the reset draws are whole-batch arrays that a task samples
-from the `torch.Generator` in `EnvState.rng` (`sample_reset_draws`), or that
-the caller passes in (`reset_draws=`), so a test can feed both packages the
-same numbers.
+Random numbers: the reset draws and the per-step draws of the control (a
+task's `sample_step_draws`, e.g. ShadowHand's goal-only resets) are
+whole-batch arrays that a task samples from the `torch.Generator` in
+`EnvState.rng`, or that the caller passes in (`reset_draws=`,
+`step_draws=`), so a test can feed both packages the same numbers.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ class EnvState:
     sim: SimState
     progress: torch.Tensor   # (N,) int32 steps since episode start
     reset: torch.Tensor      # (N,) bool done flags of the last step
-    rng: torch.Generator     # draws of resets (and nothing else)
+    rng: torch.Generator     # draws of resets and of the per-step control
     ts: Dict[str, torch.Tensor]  # task state (commands, last actions, ...)
 
 
@@ -72,9 +73,14 @@ class TaskEnv(abc.ABC):
     def _reset_envs(self, state: EnvState, mask: torch.Tensor, draws: Dict[str, torch.Tensor]) -> EnvState:
         """Re-initialize the envs where mask is True from `draws`."""
 
+    def sample_step_draws(self, rng: torch.Generator, n: int) -> Dict[str, torch.Tensor]:
+        """Whole-batch random draws one control step consumes (none by default)."""
+        return {}
+
     @abc.abstractmethod
-    def _make_control(self, state: EnvState, actions: torch.Tensor) -> engine.Control:
-        """Map clipped actions to actuation."""
+    def _make_control(self, state: EnvState, actions: torch.Tensor, draws: Dict[str, torch.Tensor]):
+        """Map clipped actions to actuation: (Control, EnvState), the state
+        carrying whatever the task keeps of its actions."""
 
     @abc.abstractmethod
     def _observations(self, state: EnvState, actions: torch.Tensor) -> torch.Tensor:
@@ -109,10 +115,12 @@ class TaskEnv(abc.ABC):
     def step(
         self, state: EnvState, actions: torch.Tensor,
         reset_draws: Optional[Dict[str, torch.Tensor]] = None,
+        step_draws: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[EnvState, Dict[str, torch.Tensor], torch.Tensor, torch.Tensor, Dict]:
         """One env step.  Returns (state', obs_dict, rew, done, extras)."""
         actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
-        ctrl = self._make_control(state, actions)
+        draws = self.sample_step_draws(state.rng, self.num_envs) if step_draws is None else step_draws
+        ctrl, state = self._make_control(state, actions, draws)
         sim = state.sim
         for _ in range(self.control_freq_inv):
             sim = engine.step(self.model, self.terrain, sim, ctrl, self.dt, self.substeps)

@@ -1,4 +1,4 @@
-"""Task registry: name -> TaskEnv class.  The port registers Anymal only."""
+"""Task registry: name -> TaskEnv class, for the ported tasks."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Callable] = {}
 
 # (module, registry name) of the ported tasks
-_TASKS = [("anymal", "Anymal")]
+_TASKS = [("anymal", "Anymal"), ("shadow_hand", "ShadowHand")]
 
 
 def register(name: str):

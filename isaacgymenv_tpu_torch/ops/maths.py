@@ -1,7 +1,7 @@
 """Quaternion / rotation helpers on batched tensors, xyzw layout.
 
 PyTorch counterparts of the functions of `isaacgymenv_tpu/ops/maths.py` that
-the physics step and the Anymal task use.  Every function accepts arbitrary
+the physics step and the ported tasks use.  Every function accepts arbitrary
 leading batch dimensions: quaternions are `(..., 4)`, vectors `(..., 3)`.
 """
 
@@ -13,6 +13,16 @@ import torch
 def normalize(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     """Unit-normalize along the last axis."""
     return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=eps)
+
+
+def scale(x: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
+    """Map [-1, 1] -> [lower, upper]."""
+    return 0.5 * (x + 1.0) * (upper - lower) + lower
+
+
+def unscale(x: torch.Tensor, lower: torch.Tensor, upper: torch.Tensor) -> torch.Tensor:
+    """Map [lower, upper] -> [-1, 1]."""
+    return (2.0 * x - upper - lower) / (upper - lower)
 
 
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -52,6 +62,13 @@ quat_rotate = quat_apply
 
 def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_apply(quat_conjugate(q), v)
+
+
+def quat_from_angle_axis(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """Quaternion of a rotation by angle (...,) about axis (..., 3)."""
+    theta = (angle / 2.0)[..., None]
+    xyz = normalize(axis) * torch.sin(theta)
+    return quat_unit(torch.cat([xyz, torch.cos(theta)], dim=-1))
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,13 @@
-"""Soft (penalty) contact between body-attached spheres and the ground plane.
+"""Soft (penalty) contact of body-attached spheres with the ground plane and
+with the body-vs-body surfaces of the static pair list.
 
-Counterpart of the ground path of `isaacgymenv_tpu/physics/contact.py`:
+Counterpart of the ground and pair paths of `isaacgymenv_tpu/physics/contact.py`:
 compliant Hunt-Crossley normal force with the impulse caps, anchored-spring
 stiction projected onto the Coulomb cone, and the live per-body contact
-counts that renormalize every contact's effective-mass budget.  Only the
-flat plane (`terrain=None`) is ported; heightfields, pairs and SDFs are not.
+counts that renormalize every contact's effective-mass budget.  The ground is
+the flat plane only (`terrain=None`); the surfaces are spheres, boxes,
+capsules and capped cylinders.  Heightfields, the containment wall
+(`SURF_WALL`), anchors and SDFs are not ported.
 """
 
 from __future__ import annotations
@@ -27,15 +30,63 @@ def ground_active(model, terrain, geom_pos_w: torch.Tensor) -> torch.Tensor:
     return (model.geom_radius - geom_pos_w[..., 2]) > 0.0
 
 
-def body_active_counts(model, act_g: torch.Tensor, batch_shape) -> torch.Tensor:
+def _pair_tables(model, device):
+    """Index tensors of the pair list: (geom, geom body, surface, surface
+    body, surface kind) per pair."""
+    idx = lambda v: torch.as_tensor(v, dtype=torch.long, device=device)  # noqa: E731
+    return (
+        idx(model.pair_geom),
+        idx([model.geom_body[g] for g in model.pair_geom]),
+        idx(model.pair_surf),
+        idx([model.surf_body[s] for s in model.pair_surf]),
+        idx([model.surf_kind[s] for s in model.pair_surf]),
+    )
+
+
+def _pair_frames(model, geom_pos_w, body_pos_w, body_R_w):
+    """Sphere centers c (..., np, 3), surface frames R_s (..., np, 3, 3) and
+    the centers in those frames, local (..., np, 3)."""
+    pg, _, ps, sb, _ = _pair_tables(model, geom_pos_w.device)
+    c = geom_pos_w[..., pg, :]
+    Rb = body_R_w[..., sb, :, :]
+    R_s = Rb @ model.surf_rotm[ps]
+    p_s = body_pos_w[..., sb, :] + (Rb @ model.surf_offset[ps].unsqueeze(-1)).squeeze(-1)
+    local = (R_s.transpose(-1, -2) @ (c - p_s).unsqueeze(-1)).squeeze(-1)
+    return c, R_s, local
+
+
+def pair_depth(model, geom_pos_w, body_pos_w, body_R_w) -> torch.Tensor:
+    """(..., np) penetration depth of each pair's sphere into its surface."""
+    pg, _, ps, _, kind = _pair_tables(model, geom_pos_w.device)
+    _, _, local = _pair_frames(model, geom_pos_w, body_pos_w, body_R_w)
+    _, d_surf = _surface_closest(kind, local, model.surf_size[ps])
+    return model.geom_radius[pg] - d_surf
+
+
+def pair_active(model, geom_pos_w, body_pos_w, body_R_w) -> Optional[torch.Tensor]:
+    """(..., np) bool: pair contacts currently penetrating; None without pairs."""
+    if not model.n_pairs:
+        return None
+    return pair_depth(model, geom_pos_w, body_pos_w, body_R_w) > 0.0
+
+
+def body_active_counts(model, act_g: Optional[torch.Tensor], act_p: Optional[torch.Tensor], batch_shape,
+                       device=None) -> torch.Tensor:
     """(..., nb) number of active contacts loading each body, at least 1.
 
+    A ground contact loads its geom's body, a pair contact both bodies.
     Each contact's stiffness/impulse budget is divided by its body's live
     count, so the sum over simultaneous contacts stays within the stability
     bound while a single contact keeps its full budget."""
-    counts = torch.zeros(batch_shape + (model.nb,), dtype=torch.float32, device=act_g.device)
-    gb = torch.as_tensor(model.geom_body, device=act_g.device)
-    counts = counts.index_add(-1, gb, act_g.to(torch.float32))
+    device = device if act_g is None else act_g.device
+    counts = torch.zeros(batch_shape + (model.nb,), dtype=torch.float32, device=device)
+    if act_g is not None:
+        gb = torch.as_tensor(model.geom_body, device=device)
+        counts = counts.index_add(-1, gb, act_g.to(torch.float32))
+    if act_p is not None:
+        _, pgb, _, psb, _ = _pair_tables(model, device)
+        ap = act_p.to(torch.float32)
+        counts = counts.index_add(-1, pgb, ap).index_add(-1, psb, ap)
     return torch.clamp(counts, min=1.0)
 
 
@@ -124,4 +175,146 @@ def contact_forces(
     shape = body_pos_w.shape
     body_force = torch.zeros(shape, dtype=f_world.dtype, device=f_world.device).index_add(-2, gb, f_world)
     body_torque = torch.zeros(shape, dtype=f_world.dtype, device=f_world.device).index_add(-2, gb, torque)
+    return torch.cat([body_torque, body_force], dim=-1), body_force, slip_new
+
+
+def _surface_closest(kind: torch.Tensor, local: torch.Tensor, size: torch.Tensor):
+    """Closest feature of the surface to a sphere center.
+
+    kind (np,) int: 0 sphere [R], 1 box [half extents], 2 capsule [R, half
+    length] and 3 capped cylinder [R, half length], both along local z;
+    local (..., np, 3) centers in the surface frame; size (np, 3).
+    Returns (normal (..., np, 3) in the surface frame, pointing away from the
+    surface; signed distance (..., np) from the surface to the center,
+    negative inside).  Every kind is evaluated and the pair's kind selected.
+    """
+    eps = 1e-9
+    # sphere
+    dist_c = torch.linalg.norm(local, dim=-1)
+    n_sph = local / torch.clamp(dist_c, min=eps)[..., None]
+    d_sph = dist_c - size[..., 0]
+
+    # box
+    q = torch.maximum(torch.minimum(local, size), -size)
+    delta = local - q
+    dist_out = torch.linalg.norm(delta, dim=-1)
+    n_out = delta / torch.clamp(dist_out, min=eps)[..., None]
+    face = size - torch.abs(local)  # >= 0 inside
+    k = torch.argmin(face, dim=-1, keepdim=True)
+    n_in = torch.sign(torch.gather(local, -1, k)) * torch.nn.functional.one_hot(k[..., 0], 3).to(local.dtype)
+    d_in = -torch.gather(face, -1, k)[..., 0]
+    inside = dist_out <= eps
+    n_box = torch.where(inside[..., None], n_in, n_out)
+    d_box = torch.where(inside, d_in, dist_out)
+
+    # capsule
+    seg_z = torch.maximum(torch.minimum(local[..., 2], size[..., 1]), -size[..., 1])
+    d_vec = torch.stack([local[..., 0], local[..., 1], local[..., 2] - seg_z], dim=-1)
+    dist_seg = torch.linalg.norm(d_vec, dim=-1)
+    n_cap = d_vec / torch.clamp(dist_seg, min=eps)[..., None]
+    d_cap = dist_seg - size[..., 0]
+
+    # capped cylinder (flat caps)
+    rho = torch.linalg.norm(local[..., 0:2], dim=-1)
+    radial_dir = local[..., 0:2] / torch.clamp(rho, min=eps)[..., None]
+    dr = rho - size[..., 0]
+    dz = torch.abs(local[..., 2]) - size[..., 1]
+    out_r = torch.clamp(dr, min=0.0)
+    out_z = torch.clamp(dz, min=0.0)
+    d_out = torch.sqrt(out_r * out_r + out_z * out_z)
+    d_in_cyl = torch.maximum(dr, dz)
+    d_cyl = torch.where(d_in_cyl < 0, d_in_cyl, d_out)
+    sz = torch.sign(local[..., 2])
+    n_out_vec = torch.cat([out_r[..., None] * radial_dir, (out_z * sz)[..., None]], dim=-1)
+    n_out_cyl = n_out_vec / torch.clamp(d_out, min=eps)[..., None]
+    zeros2 = torch.zeros_like(radial_dir)
+    n_cap_in = torch.cat([zeros2, sz[..., None]], dim=-1)
+    n_rad_in = torch.cat([radial_dir, torch.zeros_like(sz)[..., None]], dim=-1)
+    n_in_cyl = torch.where((dz > dr)[..., None], n_cap_in, n_rad_in)
+    n_cyl = torch.where((d_in_cyl < 0)[..., None], n_in_cyl, n_out_cyl)
+
+    n = n_cap
+    n = torch.where((kind == 0)[..., None], n_sph, n)
+    n = torch.where((kind == 1)[..., None], n_box, n)
+    n = torch.where((kind == 3)[..., None], n_cyl, n)
+    d = d_cap
+    d = torch.where(kind == 0, d_sph, d)
+    d = torch.where(kind == 1, d_box, d)
+    d = torch.where(kind == 3, d_cyl, d)
+    return n, d
+
+
+def pair_contact_forces(
+    model,
+    geom_pos_w: torch.Tensor,   # (..., ng, 3)
+    body_pos_w: torch.Tensor,   # (..., nb, 3)
+    body_R_w: torch.Tensor,     # (..., nb, 3, 3)
+    body_lin_w: torch.Tensor,   # (..., nb, 3)
+    body_ang_w: torch.Tensor,   # (..., nb, 3)
+    h: float,
+    n_active: Optional[torch.Tensor] = None,  # (..., nb) live contact counts
+    slip: Optional[torch.Tensor] = None,      # (..., np, 3) stiction state
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Body-vs-body contact over the static (sphere, surface) pair list.
+
+    The ground's Hunt-Crossley + anchored-spring stiction law on the pair's
+    reduced effective mass; equal and opposite forces on the two bodies.
+    Returns (f_ext (..., nb, 6), body_contact_force (..., nb, 3), slip_new).
+    """
+    pg, gb, ps, sb, kind = _pair_tables(model, geom_pos_w.device)
+    c, R_s, local = _pair_frames(model, geom_pos_w, body_pos_w, body_R_w)
+    r = model.geom_radius[pg]
+    n_local, d_surf = _surface_closest(kind, local, model.surf_size[ps])
+    n = (R_s @ n_local.unsqueeze(-1)).squeeze(-1)  # world, away from the surface
+    depth = r - d_surf
+    active = depth > 0.0
+
+    # contact point: on the sphere, toward the surface
+    x_c = c - n * r[..., None]
+    lever_g = x_c - body_pos_w[..., gb, :]
+    lever_s = x_c - body_pos_w[..., sb, :]
+    v_g = body_lin_w[..., gb, :] + spatial.cross(body_ang_w[..., gb, :], lever_g)
+    v_s = body_lin_w[..., sb, :] + spatial.cross(body_ang_w[..., sb, :], lever_s)
+    v_rel = v_g - v_s
+    v_n = (v_rel * n).sum(-1)
+    v_t = v_rel - v_n[..., None] * n
+
+    kn, kd, kt = model.contact_stiffness, model.contact_damping, model.tangential_stiffness
+    if n_active is not None:
+        share_g = 1.0 / n_active[..., gb]
+        share_s = 1.0 / n_active[..., sb]
+    else:
+        share_g = share_s = 1.0
+    m_g = model.geom_meff[pg] * share_g
+    m_s = model.surf_meff[ps] * share_s
+    m_pair = m_g * m_s / (m_g + m_s)  # reduced mass of the pair
+    kappa, kappa_n = 0.25, 1.0
+    arrest = kappa * m_pair / h
+    arrest_n = kappa_n * m_pair / h
+    g_el = model.geom_meff_el if model.geom_meff_el is not None else model.geom_meff
+    s_el = model.surf_meff_el if model.surf_meff_el is not None else model.surf_meff
+    m_g_el = g_el[pg] * share_g
+    m_s_el = s_el[ps] * share_s
+    m_pair_el = m_g_el * m_s_el / (m_g_el + m_s_el)
+    kn_eff = torch.minimum(kn, m_pair_el / (h * h))
+
+    d_pos = torch.clamp(torch.clamp(depth, min=0.0), max=0.05)
+    f_damp = torch.minimum(kd * d_pos, arrest_n) * (-v_n)
+    fn = torch.clamp(kn_eff * d_pos + f_damp, min=0.0)
+    fn = torch.where(active, fn, torch.zeros_like(fn))
+
+    mu = torch.sqrt(model.geom_friction[pg] * model.surf_friction[ps]).expand(v_n.shape)
+    kt_el = torch.minimum(kt, m_pair / (h * h)).expand(v_n.shape)
+    ct = torch.minimum(arrest, kt).expand(v_n.shape)
+    if slip is None:
+        slip = torch.zeros_like(c)
+    ft, slip_new = stiction_force(slip, v_t, n, fn, mu, kt_el, ct, h, active)
+    f = fn[..., None] * n + ft  # force on the sphere's body
+
+    shape = body_pos_w.shape
+    zeros = torch.zeros(shape, dtype=f.dtype, device=f.device)
+    body_force = zeros.index_add(-2, gb, f).index_add(-2, sb, -f)
+    body_torque = zeros.index_add(-2, gb, spatial.cross(lever_g, f)).index_add(
+        -2, sb, spatial.cross(lever_s, -f)
+    )
     return torch.cat([body_torque, body_force], dim=-1), body_force, slip_new

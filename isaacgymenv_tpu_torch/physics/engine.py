@@ -1,10 +1,16 @@
 """The simulation step: actuation -> contacts -> forward dynamics -> integrate.
 
 Counterpart of `isaacgymenv_tpu/physics/engine.py`.  `step` advances one
-control period of `substeps` substeps.  A scene that `fused.fused_structural_ok`
-accepts goes through `fused.fused_substep`, which launches the CUDA kernel
-for a CUDA state and runs its plain version (the `_substep` loop below) for
-a CPU state; any other scene runs the `_substep` loop.
+control period of `substeps` substeps through one of three paths, which
+`_use_fused` picks:
+- "mono": `fused.fused_substep`, one CUDA kernel for all substeps (B1), for
+  flat-ground scenes without pairs, tendons or `no_ground`;
+- "split": `fused_split.split_substep`, a contacts kernel and a dynamics
+  kernel per substep (B2 + B3), for scenes with pairs, tendons or
+  `no_ground` within the split tables' caps;
+- None: the plain `_substep` loop below.
+A CUDA state on a kernel path launches the kernels; a CPU state runs their
+plain version, which is the `_substep` loop.
 
 Stability notes: joint drive damping, limit springs and joint friction are
 integrated implicitly (h*Kd + h^2*Kp added to the joint-space diagonal);
@@ -74,7 +80,7 @@ def actuation_force(model: SimModel, dof_pos, dof_vel, ctrl: Control):
 
 def passive_force(model: SimModel, dof_pos, dof_vel):
     """Soft joint-limit springs + regularized Coulomb joint friction + passive
-    damping of drive-less dofs."""
+    damping of drive-less dofs + fixed-tendon limit springs."""
     zero = torch.zeros_like(dof_pos)
     below = torch.clamp(dof_pos - model.dof_lower, max=0.0)
     above = torch.clamp(dof_pos - model.dof_upper, min=0.0)
@@ -88,7 +94,19 @@ def passive_force(model: SimModel, dof_pos, dof_vel):
     mode = model.dof_drive_mode
     passive_damped = (mode == DRIVE_NONE) | (mode == DRIVE_EFFORT)
     tau_damp = torch.where(passive_damped, -model.dof_damping * dof_vel, zero)
-    return tau_lim + tau_fric + tau_damp
+    tau = tau_lim + tau_fric + tau_damp
+    if model.tendon_dof:
+        # tendon length L = sum(coef * q) held in [lo, hi] by a spring-damper;
+        # its generalized force is f * dL/dq = f * coef on each coupled dof
+        td = torch.as_tensor(model.tendon_dof, device=dof_pos.device)  # (nt, k)
+        tc = model.tendon_coef
+        L = (dof_pos[..., td] * tc).sum(-1)
+        Ld = (dof_vel[..., td] * tc).sum(-1)
+        lo, hi = model.tendon_range[..., 0], model.tendon_range[..., 1]
+        viol = torch.clamp(L - hi, min=0.0) + torch.clamp(L - lo, max=0.0)
+        f_t = -model.tendon_k * viol - model.tendon_d * Ld * (torch.abs(viol) > 0).to(dof_pos.dtype)
+        tau = tau.index_add(-1, td.reshape(-1), (f_t[..., None] * tc).flatten(-2))
+    return tau
 
 
 def _implicit_drive_terms(model: SimModel, h: float, dof_pos: torch.Tensor) -> torch.Tensor:
@@ -133,29 +151,52 @@ def _integrate(model: SimModel, q: torch.Tensor, qd_new: torch.Tensor, dt: float
     return q_new
 
 
-def _substep(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, h: float):
-    """One substep on raw arrays.
-
-    Returns (q_new, qd_new, dof_force, contact_force, contact_torque, slip_g_new).
-    """
-    kin = kinematics.fk(model, q, qd)
+def _geom_world(model: SimModel, kin):
+    """World positions and velocities of the body caches and contact spheres."""
     ang_w, lin_w = kinematics.world_velocities(model, kin)
     body_pos_w = torch.stack(kin.p_w, dim=-2)
     body_ang_w = torch.stack(ang_w, dim=-2)
     body_lin_w = torch.stack(lin_w, dim=-2)
-
     gb = list(model.geom_body)
     R_w = torch.stack(kin.R_w, dim=-3)
     off_w = (R_w[..., gb, :, :] @ model.geom_offset.unsqueeze(-1)).squeeze(-1)
     geom_pos_w = body_pos_w[..., gb, :] + off_w
     geom_vel_w = body_lin_w[..., gb, :] + torch.linalg.cross(body_ang_w[..., gb, :], off_w, dim=-1)
-    act_g = contact_mod.ground_active(model, terrain, geom_pos_w)
-    n_act = contact_mod.body_active_counts(model, act_g, geom_pos_w.shape[:-2])
-    f_ext, body_cf, slip_g = contact_mod.contact_forces(
-        model, terrain, geom_pos_w, geom_vel_w, body_pos_w, h=h,
-        n_active=n_act, slip=slip_g, geom_ang_w=body_ang_w[..., gb, :],
-    )
+    return body_pos_w, R_w, body_ang_w, body_lin_w, geom_pos_w, geom_vel_w
 
+
+def _contacts(model: SimModel, terrain, kin, slip_g, slip_p, h: float):
+    """Ground and pair contacts at the poses of `kin` (kinematics.fk).
+
+    Returns (f_ext (N, nb, 6) world [moment, force] about each body origin,
+    contact_force (N, nb, 3), slip_g, slip_p)."""
+    body_pos_w, R_w, body_ang_w, body_lin_w, geom_pos_w, geom_vel_w = _geom_world(model, kin)
+    act_g = None if model.no_ground else contact_mod.ground_active(model, terrain, geom_pos_w)
+    act_p = contact_mod.pair_active(model, geom_pos_w, body_pos_w, R_w)
+    n_act = contact_mod.body_active_counts(model, act_g, act_p, geom_pos_w.shape[:-2], device=geom_pos_w.device)
+    if model.no_ground:
+        # the scene guarantees no geom reaches the ground plane (SimModel.no_ground)
+        f_ext = torch.zeros(body_pos_w.shape[:-1] + (6,), dtype=body_pos_w.dtype, device=body_pos_w.device)
+        body_cf = f_ext[..., 3:]
+    else:
+        f_ext, body_cf, slip_g = contact_mod.contact_forces(
+            model, terrain, geom_pos_w, geom_vel_w, body_pos_w, h=h,
+            n_active=n_act, slip=slip_g, geom_ang_w=body_ang_w[..., list(model.geom_body), :],
+        )
+    if model.n_pairs:
+        f_pair, cf_pair, slip_p = contact_mod.pair_contact_forces(
+            model, geom_pos_w, body_pos_w, R_w, body_lin_w, body_ang_w, h=h,
+            n_active=n_act, slip=slip_p,
+        )
+        f_ext = f_ext + f_pair
+        body_cf = body_cf + cf_pair
+    return f_ext, body_cf, slip_g, slip_p
+
+
+def _dynamics(model: SimModel, kin, q, qd, ctrl: Control, f_ext, h: float):
+    """Joint forces -> ABA with f_ext -> integration, at the poses of `kin`.
+
+    Returns (q_new, qd_new, dof_force)."""
     vi = list(model.dof_v_adr)
     dof_p, dof_v = q[..., list(model.dof_q_adr)], qd[..., vi]
     tau_dof = actuation_force(model, dof_p, dof_v, ctrl) + passive_force(model, dof_p, dof_v)
@@ -167,28 +208,36 @@ def _substep(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, h: float):
     qd_new = qd + qdd * h
     qd_new[..., vi] = torch.clamp(qd_new[..., vi], -model.dof_maxvel, model.dof_maxvel)
     qd_new = _clamp_root_vel(model, qd_new)
-    q_new = _integrate(model, q, qd_new, h)
+    return _integrate(model, q, qd_new, h), qd_new, tau_dof
+
+
+def _substep(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip_p, h: float):
+    """One substep on raw arrays.
+
+    Returns (q_new, qd_new, dof_force, contact_force, contact_torque, slip_g, slip_p).
+    """
+    kin = kinematics.fk(model, q, qd)
+    f_ext, body_cf, slip_g, slip_p = _contacts(model, terrain, kin, slip_g, slip_p, h)
+    q_new, qd_new, tau_dof = _dynamics(model, kin, q, qd, ctrl, f_ext, h)
     # contact and dof forces are those of the last substep (PhysX CC_LAST_SUBSTEP)
-    return q_new, qd_new, tau_dof, body_cf, f_ext[..., :3], slip_g
+    return q_new, qd_new, tau_dof, body_cf, f_ext[..., :3], slip_g, slip_p
 
 
-def _substeps_plain(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, h: float, substeps: int):
-    """`substeps` x `_substep`: the plain version of the fused kernel."""
+def _substeps_plain(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip_p, h: float, substeps: int):
+    """`substeps` x `_substep`: the plain version of the substep kernels."""
     for _ in range(substeps):
-        q, qd, dof_force, cf, ct, slip_g = _substep(model, terrain, q, qd, ctrl, slip_g, h)
-    return q, qd, dof_force, cf, ct, slip_g
+        q, qd, dof_force, cf, ct, slip_g, slip_p = _substep(model, terrain, q, qd, ctrl, slip_g, slip_p, h)
+    return q, qd, dof_force, cf, ct, slip_g, slip_p
 
 
 def _check_supported(model: SimModel, terrain, ctrl: Control) -> None:
     unsupported = {
         "heightfield terrain": terrain is not None,
-        "pair contacts": model.n_pairs,
+        "containment-wall surfaces": any(k not in (0, 1, 2, 3) for k in model.surf_kind),
         "SDF colliders": model.n_sdf,
         "world anchors": model.anchor_body,
         "gravity compensation": model.body_gravcomp is not None,
         "force sensors": model.sensor_body,
-        "fixed tendons": model.tendon_dof,
-        "no_ground scenes": model.no_ground,
         "body wrenches": ctrl.body_wrench is not None,
     }
     missing = [k for k, v in unsupported.items() if v]
@@ -196,33 +245,61 @@ def _check_supported(model: SimModel, terrain, ctrl: Control) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
+def _use_fused(model: SimModel, q: torch.Tensor) -> Optional[str]:
+    """Kernel dispatch: "mono" (B1), "split" (B2 + B3) or None (plain loop).
+
+    This rule is the port's own.  The JAX package sends a scene to the split
+    pair only when the mono kernel overflows the TPU's VMEM and the pair
+    fits it (`fused_split.split_ok`); that rule refuses ShadowHand at 1024
+    envs and more, so on a TPU no task takes the split pair by default.  The
+    H100 has no VMEM wall: here the scene's features decide.  B1's CUDA
+    subset has no pairs, tendons or `no_ground`; scenes with any of them
+    take B2 + B3 within the split tables' caps, and the plain loop above them.
+    """
+    from isaacgymenv_tpu_torch.physics import fused as fused_mod
+    from isaacgymenv_tpu_torch.physics import fused_split as split_mod
+
+    if q.ndim != 2 or not fused_mod.fused_structural_ok(model, q.shape[0]):
+        return None
+    if not (model.n_pairs or model.tendon_dof or model.no_ground):
+        return "mono"
+    return "split" if split_mod.split_structural_ok(model) else None
+
+
 def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, substeps: int = 2) -> SimState:
     """Advance one control period: `substeps` x (dt / substeps), then `forward`.
 
     Contact/dof forces are those of the last substep; the body caches are
     refreshed against the new q/qd."""
-    from isaacgymenv_tpu_torch.physics import fused as fused_mod
-
     _check_supported(model, terrain, ctrl)
     h = dt / substeps
-    slip_g = state.slip_g
-    if model.ng and slip_g is None:
-        # zeros = "no anchor yet": re-anchored on the first active substep
-        slip_g = torch.zeros(state.q.shape[:-1] + (model.ng, 3), dtype=state.q.dtype, device=state.q.device)
+    z = lambda k: torch.zeros(state.q.shape[:-1] + (k, 3), dtype=state.q.dtype, device=state.q.device)  # noqa: E731
+    # zeros = "no anchor yet": re-anchored on the first active substep
+    slip_g = z(model.ng) if model.ng and state.slip_g is None else state.slip_g
+    slip_p = z(model.n_pairs) if model.n_pairs and state.slip_p is None else state.slip_p
     n = state.q.shape[0]
     nd = model.nd
-    args = (
-        state.q, state.qd,
-        ctrl.pos_target.expand(n, nd), ctrl.vel_target.expand(n, nd), ctrl.effort.expand(n, nd),
-        slip_g, h, substeps,
-    )
-    if state.q.ndim == 2 and fused_mod.fused_structural_ok(model, n):
-        q, qd, dof_force, cf, ct, slip_g = fused_mod.fused_substep(fused_mod.tables_for(model, state.q.device), *args)
+    targets = (ctrl.pos_target.expand(n, nd), ctrl.vel_target.expand(n, nd), ctrl.effort.expand(n, nd))
+    kind = _use_fused(model, state.q)
+    if kind == "mono":
+        from isaacgymenv_tpu_torch.physics import fused as fused_mod
+
+        q, qd, dof_force, cf, ct, slip_g = fused_mod.fused_substep(
+            fused_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, h, substeps
+        )
+    elif kind == "split":
+        from isaacgymenv_tpu_torch.physics import fused_split as split_mod
+
+        q, qd, dof_force, cf, ct, slip_g, slip_p = split_mod.split_substep(
+            split_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, slip_p, h, substeps
+        )
     else:
-        q, qd, dof_force, cf, ct, slip_g = _substeps_plain(model, terrain, state.q, state.qd, ctrl, slip_g, h, substeps)
+        q, qd, dof_force, cf, ct, slip_g, slip_p = _substeps_plain(
+            model, terrain, state.q, state.qd, ctrl, slip_g, slip_p, h, substeps
+        )
     state = dataclasses.replace(
         state, q=q, qd=qd, dof_force=dof_force, contact_force=cf, contact_torque=ct,
-        slip_g=slip_g if model.ng else None,
+        slip_g=slip_g if model.ng else None, slip_p=slip_p if model.n_pairs else None,
     )
     return forward(model, terrain, state)
 

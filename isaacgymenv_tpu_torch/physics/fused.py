@@ -5,7 +5,8 @@ for the scenes that `fused_structural_ok` accepts.  The kernel
 (`csrc/fused_substep.cu`, one thread per env) is one fixed source: the model
 arrives as data, a `FusedModel` table that `build_tables` fills once per
 model and device.  It is built with one `nvcc` call at first use into the
-git-ignored `_build/` directory and loaded with ctypes.
+git-ignored `_build/` directory (`build_library`, shared with the split
+kernels) and loaded with ctypes.
 
 `fused_substep` is the wrapper: a CUDA state launches the kernel (or raises),
 a CPU state runs `fused_substep_plain`, the eager port of the XLA path
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import os
 import shutil
 import subprocess
@@ -37,17 +39,18 @@ from isaacgymenv_tpu_torch.physics.types import (
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_substep.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCE = os.path.join(CSRC, "fused_substep.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# compile-time caps of csrc/fused_substep.cu (FS_MAX_*)
+# compile-time caps of csrc/substep_common.cuh (FS_MAX_*)
 MAX_BODIES, MAX_DOFS, MAX_GEOMS, MAX_Q, MAX_V = 32, 32, 256, 64, 64
 
 
 class FusedModel(ctypes.Structure):
-    """Field-for-field mirror of `struct FusedModel` in csrc/fused_substep.cu."""
+    """Field-for-field mirror of `struct FusedModel` in csrc/substep_common.cuh."""
 
     _fields_ = [
         ("nb", ctypes.c_int), ("nq", ctypes.c_int), ("nv", ctypes.c_int),
@@ -182,12 +185,39 @@ def build_tables(model: SimModel, device) -> FusedTables:
     return FusedTables(model=model.to(device), table=table)
 
 
+def cached_tables(model: SimModel, device, build):
+    """`build(model, device)`, cached on the model per builder and device."""
+    key = (build.__module__, str(torch.device(device)))
+    if key not in model.fused_cache:
+        model.fused_cache[key] = build(model, device)
+    return model.fused_cache[key]
+
+
 def tables_for(model: SimModel, device) -> FusedTables:
     """`build_tables`, cached on the model per device."""
-    key = str(torch.device(device))
-    if key not in model.fused_cache:
-        model.fused_cache[key] = build_tables(model, device)
-    return model.fused_cache[key]
+    return cached_tables(model, device, build_tables)
+
+
+# ------------------------------------------------ helpers of the kernel wrappers
+
+def to_minor(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(n, ...) -> its env-minor copy (k, n): element (i, env) at i * n + env."""
+    return t.reshape(n, t.numel() // n).t().contiguous()
+
+
+def from_minor(t: torch.Tensor, n: int, *shape) -> torch.Tensor:
+    """An env-minor (k, n) tensor back to (n, *shape)."""
+    return t.t().contiguous().view(n, *shape)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address for a launch function; None gives NULL."""
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def stream(dev) -> ctypes.c_void_p:
+    """The current CUDA stream of `dev`, for a launch function."""
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def fused_substep_plain(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float, substeps: int):
@@ -195,13 +225,13 @@ def fused_substep_plain(tables: FusedTables, q, qd, pos_target, vel_target, effo
 
     Returns (q, qd, dof_force, contact_force, contact_torque, slip_g)."""
     ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
-    return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, h, substeps)
+    return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, None, h, substeps)[:6]
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_substep") -> None:
     if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"fused_substep: {name} must be float32 {tuple(shape)} on {device}, "
+            f"{who}: {name} must be float32 {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
 
@@ -224,55 +254,56 @@ def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, sl
         _check(name, t, (n, model.nd), dev)
     _check("slip_g", slip_g, (n, model.ng, 3), dev)
 
-    # env-minor copies: element (k, env) at k * n + env
-    qT = q.t().contiguous()
-    qdT = qd.t().contiguous()
-    tgtT = pos_target.t().contiguous()
-    vtgT = vel_target.t().contiguous()
-    effT = effort.t().contiguous()
-    slipT = slip_g.reshape(n, model.ng * 3).t().contiguous()
+    qT, qdT, tgtT, vtgT, effT, slipT = (to_minor(t, n) for t in (q, qd, pos_target, vel_target, effort, slip_g))
     dof_force = torch.empty((model.nd, n), dtype=torch.float32, device=dev)
     cf = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
     ct = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
     lib = _library()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_substep_launch(
             ptr(tables.table), ptr(qT), ptr(qdT), ptr(tgtT), ptr(vtgT), ptr(effT),
             ptr(slipT), ptr(dof_force), ptr(cf), ptr(ct),
-            n, float(h), float(h * h), int(substeps), ctypes.c_void_p(stream),
+            n, float(h), float(h * h), int(substeps), stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"fused_substep kernel launch failed: CUDA error {err}")
     fused_substep.launches += 1
     return (
-        qT.t().contiguous(),
-        qdT.t().contiguous(),
-        dof_force.t().contiguous(),
-        cf.t().contiguous().view(n, model.nb, 3),
-        ct.t().contiguous().view(n, model.nb, 3),
-        slipT.t().contiguous().view(n, model.ng, 3),
+        from_minor(qT, n, model.nq),
+        from_minor(qdT, n, model.nv),
+        from_minor(dof_force, n, model.nd),
+        from_minor(cf, n, model.nb, 3),
+        from_minor(ct, n, model.nb, 3),
+        from_minor(slipT, n, model.ng, 3),
     )
 
 
 fused_substep.launches = 0
 
 
-def build_library() -> tuple[str, float, str]:
-    """Compile csrc/fused_substep.cu with one nvcc call unless an up-to-date
-    build exists.  Returns (library path, build seconds, nvcc output)."""
-    lib_path = os.path.join(BUILD_DIR, "libfused_substep.so")
-    if os.path.exists(lib_path) and os.path.getmtime(lib_path) >= os.path.getmtime(SOURCE):
+def build_library(source: str = SOURCE) -> tuple[str, float, str]:
+    """Compile `source` (a .cu file of csrc/) with one nvcc call unless a build
+    of the same csrc/ files already exists.  Returns (library path, build
+    seconds, nvcc output).
+
+    The library's name carries a hash of every file under csrc/ (the shared
+    header too) and of the flags, so an edit to any of them builds anew."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(f for f in os.listdir(CSRC) if os.path.isfile(os.path.join(CSRC, f))):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
+    stem = os.path.splitext(os.path.basename(source))[0]
+    lib_path = os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(lib_path):
         return lib_path, 0.0, ""
     nvcc = shutil.which("nvcc") or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the fused_substep kernel needs the CUDA toolkit")
+        raise RuntimeError(f"nvcc not found: {stem} needs the CUDA toolkit")
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True)
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)

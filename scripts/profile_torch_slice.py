@@ -2,17 +2,18 @@
 
     python3 scripts/profile_torch_slice.py
 
-Drives the chip_smoke.py acting step (normalize obs -> ActorCritic -> sample
-actions -> env.step) on Anymal, N_ENVS envs for N_STEPS timed steps, and
+For each ported slice (Anymal at 4096 envs, ShadowHand at 16384, the widths
+chip_smoke.py drives), runs the chip_smoke.py acting step (normalize obs ->
+ActorCritic -> sample actions -> env.step) for N_STEPS timed steps and
 reports, with the card's name and power limit:
 1. synchronized phase times: every phase ends in torch.cuda.synchronize(),
    inclusive host wall ms per acting step of the policy, `env.step`,
-   `engine.step` (kernel + FK refresh) and `engine.forward` (FK refresh;
+   `engine.step` (kernels + FK refresh) and `engine.forward` (FK refresh;
    twice per env step);
 2. a torch.profiler window without synchronization: wall ms per step,
    device-busy ms per step (sum of kernel times), the idle share, CUDA
    kernel launches per step, and the kernels with the most device time.
-The last line is one JSON object with the same numbers.
+The last line is one JSON object with the same numbers per slice.
 """
 
 from __future__ import annotations
@@ -28,31 +29,24 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-N_ENVS = 4096  # as chip_smoke.py
+SLICES = (("Anymal", 4096), ("ShadowHand", 16384))  # as chip_smoke.py
 N_STEPS = 20
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_slice: needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+def profile(task: str, n_envs: int) -> dict:
     import isaacgymenv_tpu_torch
     from isaacgymenv_tpu_torch.learning.networks import ActorCritic
     from isaacgymenv_tpu_torch.learning.running_stats import RunningStats
     from isaacgymenv_tpu_torch.physics import engine
     from isaacgymenv_tpu_torch.utils.config import load_train_config
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    env = isaacgymenv_tpu_torch.make("Anymal", num_envs=N_ENVS)
+    env = isaacgymenv_tpu_torch.make(task, num_envs=n_envs)
     torch.manual_seed(0)
-    policy = ActorCritic.from_train_config(load_train_config("Anymal"), env.num_obs, env.num_actions).to(env.device)
+    policy = ActorCritic.from_train_config(load_train_config(task), env.num_obs, env.num_actions).to(env.device)
     gen = torch.Generator(device=env.device).manual_seed(0)
     box = {"stats": RunningStats.create((env.num_obs,), device=env.device)}
     state = env.initial_state(seed=0)
-    state, obs_dict, *_ = env.step(state, torch.zeros((N_ENVS, env.num_actions), device=env.device))
+    state, obs_dict, *_ = env.step(state, torch.zeros((n_envs, env.num_actions), device=env.device))
 
     def act(obs):
         box["stats"] = box["stats"].update(obs)
@@ -86,7 +80,7 @@ def main() -> int:
     engine.step, engine.forward = originals
     phases = {k: 1e3 * v / N_STEPS for k, v in totals.items()}
     for k, v in phases.items():
-        print(f"synchronized {k}: {v:.3f} ms per acting step")
+        print(f"{task} synchronized {k}: {v:.3f} ms per acting step")
 
     # ---- 2. profiler window, no synchronization inside
     from torch.profiler import ProfilerActivity, profile
@@ -110,16 +104,31 @@ def main() -> int:
     for name, us in kernels:
         by_name[name] += us / 1e3 / N_STEPS
     top = [{"kernel": n[:80], "ms_per_step": round(v, 4)} for n, v in by_name.most_common(8)]
-    print(f"profiler: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
+    print(f"{task} profiler: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
           f"idle share {1 - busy_ms / wall_ms:.3f}, {len(kernels) / N_STEPS:.0f} kernel launches/step")
     for t in top:
         print(f"  {t['ms_per_step']:.4f} ms/step  {t['kernel']}")
-    print(card)
-    print(json.dumps({
-        "card": card, "envs": N_ENVS, "steps": N_STEPS, "synchronized_ms": phases,
+    return {
+        "envs": n_envs, "steps": N_STEPS, "synchronized_ms": phases,
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "launches_per_step": len(kernels) / N_STEPS, "top_kernels": top,
-    }))
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_torch_slice: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    out = {"card": card}
+    for task, n_envs in SLICES:
+        out[task] = profile(task, n_envs)
+        torch.cuda.empty_cache()
+    print(card)
+    print(json.dumps(out))
     return 0
 
 

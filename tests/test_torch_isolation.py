@@ -52,7 +52,9 @@ def test_make_without_device_needs_cuda():
         isaacgymenv_tpu_torch.make(task="Anymal", num_envs=8)
 
 
-@pytest.mark.parametrize("kind,name", [("task", "Anymal"), ("train", "AnymalPPO")])
+@pytest.mark.parametrize("kind,name", [
+    ("task", "Anymal"), ("train", "AnymalPPO"), ("task", "ShadowHand"), ("train", "ShadowHandPPO"),
+])
 def test_cfg_copy_parses_like_the_jax_package(kind, name):
     ours = port_config.load_yaml(os.path.join(port_config.CFG_ROOT, kind, f"{name}.yaml"))
     ref = jax_config.load_yaml(os.path.join(jax_config.CFG_ROOT, kind, f"{name}.yaml"))

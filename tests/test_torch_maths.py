@@ -49,6 +49,9 @@ MATHS = {
     "quat_to_rotmat": (lambda r: (_quat(r),), 1e-5),
     "rotmat_to_quat": (lambda r: (_rotmat(r),), 5e-5),
     "quat_integrate": (lambda r: (_quat(r), _vec(r, 3.0), 0.005), 1e-5),
+    "quat_from_angle_axis": (lambda r: ((3.0 * r.normal(size=N)).astype(np.float32), _vec(r)), 1e-5),
+    "scale": (lambda r: (_vec(r), -1.0 - r.random(3).astype(np.float32), 1.0 + r.random(3).astype(np.float32)), 1e-5),
+    "unscale": (lambda r: (_vec(r), -1.0 - r.random(3).astype(np.float32), 1.0 + r.random(3).astype(np.float32)), 1e-5),
 }
 
 SPATIAL = {
