@@ -12,14 +12,31 @@ Phases (each raises on failure; the script then exits non-zero):
    pose with feet in contact, one control step through the fused kernel and
    through `fused_substep_plain` on the card, compared at the tolerances of
    tests/test_fused.py; both timed with CUDA events (median of several runs);
-4. the Anymal slice: `make("Anymal", num_envs=4096)` on cuda, then 100
+   B2 + B3 on the same flat-ground states (Anymal's model through the split
+   tables) against `split_substep_plain`;
+4. B1 in terrain_mode + fric_mode vs plain: AnymalTerrain at 4096 envs on
+   the full 10 x 20 trimesh grid, states on every level and type off the
+   flat spawn platforms with feet in contact on slopes, stairs, obstacles
+   and stones, one control step of 8 substeps with the same held ground
+   (height and normal per geom) and per-env friction given to both, at the
+   tolerances of phase 3; B1's probe (each geom's depth and Coulomb clamp
+   margin per substep) against the plain version's as the decision witness;
+   timed as phase 3;
+5. the Anymal slice: `make("Anymal", num_envs=4096)` on cuda, then 100
    acting steps (normalize obs -> ActorCritic -> sample actions -> env.step)
    with random weights from a seed; checks finiteness, the obs shape and the
    launch counts (B1 once per step, no split kernel); then 2 steps at 128
    envs held against the plain version on the CPU with the same draws;
-   before that, B2 + B3 on the same flat-ground states as phase 3 (Anymal's
-   model through the split tables) against `split_substep_plain`;
-5. B2 + B3 vs plain: ShadowHand at 16384 envs, numpy-seeded states with the
+6. the AnymalTerrain slice: `make("AnymalTerrain", 4096)` with the trimesh
+   grid, 100 acting steps with the [512, 256, 128] policy, B1 once per step;
+   then the env step on the card (ground held per control step) against the
+   CPU (ground looked up every substep) at 128 envs: 8 steps from the env's
+   own start, through the feet's touchdown, and 2 steps from states standing
+   and moving on the hard terrain; envs excused only where a geom's or a
+   height-scan point's lookup differs (the held-against-per-substep
+   witness) or a contact decision differs within rounding of its threshold
+   (the decision witness), each check's share bounded;
+7. B2 + B3 vs plain: ShadowHand at 16384 envs, numpy-seeded states with the
    cube resting on the palm (pair contacts active), one control step through
    the split kernels and through `split_substep_plain`, compared at the
    tolerances of tests/test_fused_split.py, envs excused only where B2's own
@@ -28,16 +45,18 @@ Phases (each raises on failure; the script then exits non-zero):
    kernel alone against its own plain version (`contacts_plain`,
    `dynamics_plain`); each kernel, the wrapper and the plain versions timed
    with CUDA events;
-6. the ShadowHand slice: `make("ShadowHand", num_envs=16384)` on cuda, 100
+8. the ShadowHand slice: `make("ShadowHand", num_envs=16384)` on cuda, 100
    acting steps with the [512, 512, 256, 128] policy; launch counts (each
    split kernel twice per step, no B1); then 2 steps at 128 envs from the
    resting state held against the CPU plain path;
-7. the `kernels` JSON line, the card line, and the final ok line.
+9. the `kernels` JSON line (B1 once per mode set: flat, terrain + friction;
+   B2; B3), the card line, and the final ok line.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -122,9 +141,32 @@ def _stage_flops(model) -> dict:
             "integrate": integrate + model.nv * 2}
 
 
-def fused_substep_flops(model, n: int, substeps: int) -> int:
+# extra fp32 operations per geom that a held heightfield needs beyond the
+# plane (csrc/substep_common.cuh ground_forces, which runs the plane as
+# n = (0, 0, 1)): the held height in the depth, the normal in the contact
+# point, v_n, v_t, the slip's third component and its projection, the third
+# tangential force component and the normal force along n.  The plane's
+# bound leaves them out: the plane's work does not need them.
+TERRAIN_GROUND_EXTRA = 44
+
+
+def fused_substep_flops(model, n: int, substeps: int, terrain: bool = False) -> int:
     """fp32 operations that csrc/fused_substep.cu performs for one launch."""
-    return sum(_stage_flops(model).values()) * substeps * n
+    extra = TERRAIN_GROUND_EXTRA * model.ng if terrain else 0
+    return (sum(_stage_flops(model).values()) + extra) * substeps * n
+
+
+def fused_substep_bytes(model, n: int, terrain: bool = False, fric: bool = False) -> int:
+    """Bytes one launch of B1 must move: each input read once, each output
+    written once; the held ground (4 floats per geom) and the per-env
+    friction (1) when their modes are on."""
+    return 4 * n * (
+        2 * (model.nq + model.nv + 3 * model.ng)   # q, qd, slip in and out
+        + 3 * model.nd                             # targets + effort in
+        + model.nd + 6 * model.nb                  # dof_force, contact force + torque out
+        + (4 * model.ng if terrain else 0)         # ground_h, ground_n in
+        + (model.ng if fric else 0)                # geom_fric in
+    )
 
 
 # surface_closest per kind (sphere, box from outside, capsule, cylinder from outside)
@@ -195,15 +237,165 @@ def phase_kernel_vs_plain(env, fused) -> dict:
 
     ms = cuda_ms(lambda: fused.fused_substep(tables, *args))
     plain_ms = cuda_ms(lambda: fused.fused_substep_plain(tables, *args), warmup=1, runs=5)
-    n_bytes = 4 * N_ENVS * (
-        2 * (model.nq + model.nv + 3 * model.ng)   # q, qd, slip in and out
-        + 3 * model.nd                             # targets + effort in
-        + model.nd + 6 * model.nb                  # dof_force, contact force + torque out
-    )
-    b = bound(n_bytes, fused_substep_flops(model, N_ENVS, env.substeps))
+    b = bound(fused_substep_bytes(model, N_ENVS), fused_substep_flops(model, N_ENVS, env.substeps))
     print(f"fused_substep: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound: {b['bytes']} bytes "
           f"-> {b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
     return {"max_abs_err": max(max_err.values()), "max_err": max_err, "ms": ms, "plain_ms": plain_ms, **b}
+
+
+TERRAIN_OVERRIDES = {"env.terrain.terrainType": "trimesh"}  # the JAX package's run of this task
+TILT_DEG = 5.0
+
+
+def terrain_standing_state(env, n: int, seed: int, motion: float = 1.0):
+    """AnymalTerrain q, qd, pos_target, slip, levels, types (CPU tensors):
+    env e on level e % levels and type (e // levels) % types of the grid,
+    1.8-3.5 m off its sub-terrain's center (past the flat spawn platform, on
+    the slopes, stairs, obstacles or stones), near the standing pose and
+    lowered until its lowest geom is 0-5 mm into the ground.  `motion` scales
+    the spread of the pose and the velocities (qd ~ N(0, 0.3 motion))."""
+    from isaacgymenv_tpu_torch.physics import contact, engine, kinematics
+
+    rng = np.random.default_rng(seed)
+    model = env.model.to("cpu")
+    terrain = env.terrain.to("cpu")
+    levels = torch.arange(n) % env.num_levels
+    types = (torch.arange(n) // env.num_levels) % env.num_types
+    origins = env.terrain_origins.cpu()[levels, types].numpy()
+    default = env.default_dof_pos.cpu().numpy()
+    q = np.zeros((n, model.nq), np.float32)
+    angle, radius = rng.uniform(0.0, 2 * np.pi, n), rng.uniform(1.8, 3.5, n)
+    q[:, 0] = origins[:, 0] + radius * np.cos(angle)
+    q[:, 1] = origins[:, 1] + radius * np.sin(angle)
+    quat = rng.normal(size=(n, 4)) * 0.05 * motion + [0.0, 0.0, 0.0, 1.0]
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 7:] = default + 0.2 * motion * rng.normal(size=(n, model.nd))
+    _, _, _, _, gpos, _ = engine._geom_world(model, kinematics.fk(model, torch.tensor(q), torch.zeros(n, model.nv)))
+    clearance = gpos[..., 2] - model.geom_radius - contact.height_at(terrain, gpos[..., 0], gpos[..., 1])
+    q[:, 2] -= clearance.min(-1).values.numpy() + rng.uniform(0.0, 0.005, n)
+    qd = 0.3 * motion * rng.normal(size=(n, model.nv))
+    tgt = default + 0.3 * rng.normal(size=(n, model.nd))
+    slip = np.zeros((n, model.ng, 3))
+    f = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return f(q), f(qd), f(tgt), f(slip), levels, types
+
+
+# A Coulomb clamp decision (f_mag > f_max) whose margin |f_mag - f_max| lies
+# within the contact force tolerance (TOLS' atol, in newtons) may be taken
+# either way by two runs held to that tolerance; taken the other way it
+# moves the slip anchor by a step, so the two legitimately diverge.
+CLAMP_EPS = TOLS["contact_force"][1]
+
+
+class PlainProbe:
+    """The plain ground law's counterpart of B1's `probe`: while entered,
+    each call of `contact.contact_forces` (one per substep of the plain loop)
+    appends an (N, 2, ng) row of each geom's depth and f_mag - f_max of its
+    Coulomb clamp, computed from the law's own inputs.  `probe(start, k)`
+    stacks k rows into (N, k, 2, ng), as B1 writes its probe."""
+
+    def __enter__(self):
+        from isaacgymenv_tpu_torch.physics import contact
+
+        self.rows, self._contact = [], contact
+        self._saved = forces, stiction = contact.contact_forces, contact.stiction_force
+        depth = {}
+
+        def forces_rec(model, terrain, geom_pos_w, *args, **kwargs):
+            depth["d"] = contact._depth(model, contact._height_under(terrain, geom_pos_w), geom_pos_w)
+            return forces(model, terrain, geom_pos_w, *args, **kwargs)
+
+        def stiction_rec(slip, v_t, n, fn, mu, kt_el, ct, h, active):
+            s = slip + v_t * h  # the trial force of contact.stiction_force
+            s = s - (s * n).sum(-1, keepdim=True) * n
+            f_mag = torch.linalg.norm(-kt_el[..., None] * s - ct[..., None] * v_t, dim=-1)
+            self.rows.append(torch.stack([depth["d"], f_mag - mu * fn], dim=-2).cpu())
+            return stiction(slip, v_t, n, fn, mu, kt_el, ct, h, active)
+
+        contact.contact_forces, contact.stiction_force = forces_rec, stiction_rec
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._contact.contact_forces, self._contact.stiction_force = self._saved
+
+    def probe(self, start: int, k: int) -> torch.Tensor:
+        return torch.stack(self.rows[start:start + k], dim=1)
+
+
+def decision_flips(k: torch.Tensor, p: torch.Tensor) -> dict:
+    """The decision witness of one control step, from B1's probe `k` and the
+    plain probe `p` (N, substeps, 2, ng): per env (N,) bools.  A geom's
+    activation (depth > 0) or, active in both runs, its Coulomb clamp
+    (f_mag - f_max > 0) differs at a substep ("activation", "clamp"); the
+    flip is explained when, at the env's first such substep, a geom that
+    differs there has its margin within rounding in either run: |depth|
+    under THRESHOLD_EPS, |f_mag - f_max| under CLAMP_EPS."""
+    act_k, act_p = k[:, :, 0] > 0, p[:, :, 0] > 0
+    act_flip = act_k != act_p
+    clamp_flip = act_k & act_p & ((k[:, :, 1] > 0) != (p[:, :, 1] > 0))
+    margin = torch.minimum(k.abs(), p.abs())
+    near = (act_flip & (margin[:, :, 0] < THRESHOLD_EPS)) | (clamp_flip & (margin[:, :, 1] < CLAMP_EPS))
+    at = (act_flip | clamp_flip).any(-1)
+    flipped = at.any(-1)
+    first = at.int().argmax(-1)
+    return {"flipped": flipped, "explained": flipped & near[torch.arange(k.shape[0]), first].any(-1),
+            "activation": act_flip.any(-1).any(-1), "clamp": clamp_flip.any(-1).any(-1)}
+
+
+def phase_terrain_kernel_vs_plain(env, fused) -> dict:
+    """B1 in terrain_mode + fric_mode against `fused_substep_plain` on the same
+    held inputs: AnymalTerrain at 4096 envs on the full grid, one control step
+    of 8 substeps; B1's probe against the plain probe as the decision witness."""
+    from isaacgymenv_tpu_torch.physics import contact, engine, kinematics, types
+
+    dev, model = env.device, env.model
+    n, h, substeps = env.num_envs, env.dt / env.substeps, env.substeps
+    tables = fused.tables_for(model, dev)
+    q, qd, tgt, slip, _, _ = (t.to(dev) for t in terrain_standing_state(env, n, seed=1))
+    sim = engine.forward(model, env.terrain, dataclasses.replace(types.make_zero_state(model, n), q=q, qd=qd))
+    held = contact.held_ground(model, env.terrain, sim.body_pos, sim.body_quat)
+    zero = torch.zeros_like(tgt)
+    ctl = (tgt, zero, zero)
+    extras = {"ground_h": held.height, "ground_n": held.normal, "geom_fric": model.geom_friction}
+    probe = torch.empty((n, substeps, 2, model.ng), device=dev)
+    out = fused.fused_substep(tables, q, qd, *ctl, slip, h, substeps, probe=probe, **extras)
+    with PlainProbe() as rec:
+        ref = fused.fused_substep_plain(tables, q, qd, *ctl, slip, h, substeps, **extras)
+    torch.cuda.synchronize()
+    w = decision_flips(probe.cpu(), rec.probe(0, substeps))
+    flipped = w["flipped"].to(dev)
+    n_flip, unexplained = int(w["flipped"].sum()), int((w["flipped"] & ~w["explained"]).sum())
+    print(f"B1 terrain decision witness: {n_flip} envs where a geom's activation ({int(w['activation'].sum())} envs) "
+          f"or Coulomb clamp ({int(w['clamp'].sum())} envs) differs from the plain version's at a substep, "
+          f"{unexplained} of them without a geom within {THRESHOLD_EPS} m or {CLAMP_EPS} N of its threshold at the "
+          f"first")
+    if unexplained:
+        raise AssertionError("B1 terrain: contact decisions differ without a geom at its threshold")
+    if n_flip > MAX_THRESHOLD_SHARE * n:
+        raise AssertionError(f"B1 terrain: {n_flip} envs have decisions that differ; more than {MAX_THRESHOLD_SHARE}")
+    max_err = _compare("fused_substep (B1, terrain + friction)", out, ref, TOLS, flipped)
+    active = contact.ground_active(model, held, engine._geom_world(model, kinematics.fk(model, q, qd))[4])
+    tilt = torch.rad2deg(torch.acos(held.normal[..., 2].clamp(-1.0, 1.0)))
+    tilted = int((active & (tilt > TILT_DEG)).sum())
+    contact_envs = int((ref[3].abs().sum(-1) > 0).any(-1).sum())
+    print(f"B1 terrain + friction vs plain at {n} envs, {substeps} substeps, the same held inputs: max abs err "
+          f"{max_err} over the {n - n_flip} envs whose decisions agree; envs in ground contact {contact_envs} at the "
+          f"last substep, {int(active.any(-1).sum())} at the start; active geoms at the start {int(active.sum())}, "
+          f"{tilted} of them ({tilted / max(int(active.sum()), 1):.3f}) on a normal tilted more than {TILT_DEG} deg")
+    if contact_envs < n // 4:
+        raise AssertionError(f"only {contact_envs} envs have ground contact; the terrain path is not exercised")
+    if tilted < int(active.sum()) // 10:
+        raise AssertionError(f"only {tilted} active geoms stand on a tilted normal; slopes are not exercised")
+
+    args = (tables, q, qd, *ctl, slip, h, substeps)
+    ms = cuda_ms(lambda: fused.fused_substep(*args, **extras))
+    plain_ms = cuda_ms(lambda: fused.fused_substep_plain(*args, **extras), warmup=1, runs=5)
+    b = bound(fused_substep_bytes(model, n, terrain=True, fric=True),
+              fused_substep_flops(model, n, substeps, terrain=True))
+    print(f"fused_substep (terrain + friction): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound: {b['bytes']} "
+          f"bytes -> {b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
+    return {"max_abs_err": max(max_err.values()), "max_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "decision_flip_envs": n_flip, "contact_envs": contact_envs, "tilted_active_geoms": tilted, **b}
 
 
 def launch_counts() -> dict:
@@ -222,15 +414,15 @@ def zero_launch_counts() -> None:
 
 
 @torch.no_grad()
-def phase_slice(task: str, n_envs: int, expected: dict, card: str) -> dict:
-    """`make(task)` on the card and N_STEPS acting steps; the kernels'
-    launch counts in that run must be `expected` (per acting step)."""
+def phase_slice(task: str, n_envs: int, expected: dict, card: str, overrides=None) -> dict:
+    """`make(task, **overrides)` on the card and N_STEPS acting steps; the
+    kernels' launch counts in that run must be `expected` (per acting step)."""
     import isaacgymenv_tpu_torch
     from isaacgymenv_tpu_torch.learning.networks import ActorCritic
     from isaacgymenv_tpu_torch.learning.running_stats import RunningStats
     from isaacgymenv_tpu_torch.utils.config import load_train_config
 
-    env = isaacgymenv_tpu_torch.make(task, num_envs=n_envs)
+    env = isaacgymenv_tpu_torch.make(task, num_envs=n_envs, **(overrides or {}))
     if env.device.type != "cuda":
         raise AssertionError(f"make() chose {env.device}, not the card")
     torch.manual_seed(0)
@@ -305,6 +497,183 @@ def phase_slice_vs_plain(task: str, tols: dict, n: int = 128, steps: int = 2, se
                                  f"{label} max abs err {err}")
         print(f"{task} env.step cuda vs cpu at {n} envs, {steps} steps: {label} max abs err {err}")
     print(f"{task} env.step cuda vs cpu: {contact} of {n} envs in contact at the last substep")
+
+
+# The share of envs that the witness may excuse in each of the three env
+# step checks, a few envs above the readings on an H100 (2, 7 and 23 of
+# 128): the env's own start, run through the feet's touchdown, at 5%; the
+# hard terrain standing still and moving, where feet cross cell edges
+# within a control step, at 8% and 22%.
+MAX_CELL_SHARE = {"spawned": 0.05, "standing": 0.08, "moving": 0.22}
+# the pose spread and velocities of the standing state, as a share of those
+# of the B1 check's state (terrain_standing_state's `motion`)
+STANDING = 0.1
+
+
+def _lookup_differs(a, b) -> torch.Tensor:
+    """(N,) bool: envs where two ground samples (height (N, k), normal
+    (N, k, 3) or None) differ: another cell was read.  The same cell gives the
+    same height bit for bit; the normals of one cell agree to rounding."""
+    h_a, n_a = a
+    h_b, n_b = b
+    differs = (h_a != h_b).any(-1)
+    if n_a is not None:
+        differs |= ((n_a - n_b).abs() > 1e-5).any(-1).any(-1)
+    return differs
+
+
+@torch.no_grad()
+def phase_terrain_slice_vs_plain(tols: dict, motion, actions_scale: float, max_share: float, steps: int,
+                                 n: int = 128) -> dict:
+    """AnymalTerrain's env step on the card (B1 with the ground held per
+    control step) against the CPU (the plain loop, the ground looked up every
+    substep), same inputs, actions ~ U(-1, 1) x `actions_scale`.  The envs
+    start from the env's own initial state (`motion` None: spawned above
+    their platform at the initial levels) or from `terrain_standing_state(...,
+    motion)` (every level and type of the grid, off the spawn platforms, feet
+    in contact on slopes, stairs, obstacles and stones).  Excused only: an env
+    in which, at a control step before which it agreed, a geom's ground
+    lookup (its cell) differs between the two runs or changes inside the step
+    on the CPU, a height-scan point reads another cell in the two runs, or a
+    contact decision differs with its margin within rounding (the decision
+    witness of B1's probe and the plain probe); at most `max_share` of the
+    envs."""
+    import isaacgymenv_tpu_torch
+    from isaacgymenv_tpu_torch.physics import contact, engine, fused, kinematics
+
+    envs = {d: isaacgymenv_tpu_torch.make("AnymalTerrain", num_envs=n, device=d, **TERRAIN_OVERRIDES)
+            for d in ("cuda", "cpu")}
+    cpu = envs["cpu"]
+    gen = torch.Generator().manual_seed(3)
+    seeded = motion is not None
+    if seeded:
+        q0, qd0, _, _, levels, kinds = terrain_standing_state(cpu, n, seed=2, motion=motion)
+        initial = {"terrain_levels": levels, "terrain_types": kinds}
+    else:
+        initial = cpu.sample_initial_draws(gen, n)
+    reset_draws = [cpu.sample_reset_draws(gen, n) for _ in range(steps + 1)]
+    step_draws = [cpu.sample_step_draws(gen, n) for _ in range(steps)]
+    actions = [(torch.rand((n, cpu.num_actions), generator=gen) * 2 - 1) * actions_scale for _ in range(steps)]
+    to = lambda draws, dev: {k: v.to(dev) for k, v in draws.items()}  # noqa: E731
+    step_fn, substep_fn, fused_fn = engine.step, engine._substep, fused.fused_substep
+    outs, rec, plain_probe = {}, {}, PlainProbe()
+    for d, env in envs.items():
+        r = rec[d] = {"held": [], "substeps": [], "scan": [], "probe": []}
+
+        def step_rec(model, terrain, state, ctrl, dt, substeps=2, r=r):
+            held = contact.held_ground(model, terrain, state.body_pos, state.body_quat)
+            r["held"].append((held.height.cpu(), held.normal.cpu()))
+            return step_fn(model, terrain, state, ctrl, dt, substeps)
+
+        def substep_rec(model, terrain, q, qd, *args, r=r):
+            if isinstance(terrain, contact.Heightfield):  # the per-substep lookup of the plain loop
+                gpos = engine._geom_world(model, kinematics.fk(model, q, qd))[4]
+                x, y = gpos[..., 0], gpos[..., 1]
+                r["substeps"].append((contact.height_at(terrain, x, y), contact.terrain_normal(terrain, x, y)))
+            return substep_fn(model, terrain, q, qd, *args)
+
+        def scan_rec(rs, r=r, scan_fn=env._measured_heights):
+            heights = scan_fn(rs)
+            r["scan"].append(heights.cpu())
+            return heights
+
+        def fused_rec(tables, q, *args, r=r, **kwargs):  # B1's probe on the card
+            probe = torch.empty((q.shape[0], args[6], 2, tables.model.ng), device=q.device)
+            out = fused_fn(tables, q, *args, probe=probe, **kwargs)
+            r["probe"].append(probe.cpu())
+            return out
+
+        fused_rec.launches = 0  # fused_substep counts its launches on the name it is bound to in its module
+        env._measured_heights = scan_rec
+        engine.step, engine._substep, fused.fused_substep = step_rec, substep_rec, fused_rec
+        try:
+            with plain_probe if d == "cpu" else contextlib.nullcontext():
+                state = env.initial_state(reset_draws=to(reset_draws[0], env.device),
+                                          initial_draws=to(initial, env.device))
+                if seeded:
+                    sim = dataclasses.replace(state.sim, q=q0.to(env.device), qd=qd0.to(env.device))
+                    state = dataclasses.replace(state, sim=engine.forward(env.model, env.terrain, sim))
+                for i in range(steps):
+                    r.setdefault("states", []).append((state.sim.q.cpu(), state.sim.qd.cpu()))
+                    state, obs, rew, done, _ = env.step(
+                        state, actions[i].to(env.device), reset_draws=to(reset_draws[i + 1], env.device),
+                        step_draws=to(step_draws[i], env.device))
+                    r.setdefault("obs", []).append(obs["obs"].cpu())
+        finally:
+            engine.step, engine._substep, fused.fused_substep = step_fn, substep_fn, fused_fn
+        outs[d] = {"obs": obs["obs"].cpu(), "rew": rew.cpu(), "done": done.cpu(), "q": state.sim.q.cpu(),
+                   "contact_force": state.sim.contact_force.cpu()}
+
+    # the witness, step by step: an env is excused by the first event that
+    # takes it apart from the other run, and an unexplained decision flip
+    # before any such event is a fault whatever the env's error at the end
+    if len(rec["cuda"]["probe"]) != steps or len(plain_probe.rows) != steps * cpu.substeps:
+        raise AssertionError("AnymalTerrain env.step: B1 or the plain loop did not run once per control step")
+    events = {k: torch.zeros(n, dtype=torch.bool) for k in
+              ("geom_cell_differs_across_runs", "geom_cell_changes_in_step", "scan_cell_differs_across_runs",
+               "decision_flip_explained", "decision_flip_unexplained", "activation_flip", "clamp_flip")}
+    excused = torch.zeros(n, dtype=torch.bool)
+    for k in range(steps):
+        held_cpu = rec["cpu"]["held"][k]
+        across = _lookup_differs(rec["cuda"]["held"][k], held_cpu)
+        inside = torch.zeros(n, dtype=torch.bool)
+        for sub in rec["cpu"]["substeps"][k * cpu.substeps:(k + 1) * cpu.substeps]:
+            inside |= _lookup_differs(sub, held_cpu)
+        scan = _lookup_differs((rec["cuda"]["scan"][k], None), (rec["cpu"]["scan"][k], None))
+        w = decision_flips(rec["cuda"]["probe"][k], plain_probe.probe(k * cpu.substeps, cpu.substeps))
+        lookup = across | inside | scan
+        for key, hit in (("geom_cell_differs_across_runs", across), ("geom_cell_changes_in_step", inside),
+                         ("scan_cell_differs_across_runs", scan), ("activation_flip", w["activation"]),
+                         ("clamp_flip", w["clamp"])):
+            events[key] |= hit & ~excused
+        flip = w["flipped"] & ~lookup & ~excused
+        events["decision_flip_explained"] |= flip & w["explained"]
+        events["decision_flip_unexplained"] |= flip & ~w["explained"]
+        excused |= lookup | flip
+    diff = {label: (outs["cuda"][label].float() - outs["cpu"][label].float()).abs().reshape(n, -1) for label in tols}
+    bad = torch.zeros(n, dtype=torch.bool)
+    for label, (rtol, atol) in tols.items():
+        bad |= (diff[label] > atol + rtol * outs["cpu"][label].float().abs().reshape(n, -1)).any(-1)
+    errs = {label: float(d.max()) for label, d in diff.items()}
+    errs.update({f"{label} (agreeing envs)": float(d[~bad].max()) for label, d in diff.items()})
+    unexplained = bad & ~excused
+    contact_envs = int((outs["cpu"]["contact_force"].abs().sum(-1) > 0).any(-1).sum())
+    counts = {"envs": n, "outside_tolerance": int(bad.sum()), "unexplained": int(unexplained.sum()),
+              **{key: int(v.sum()) for key, v in events.items()}, "contact_envs": contact_envs}
+    print(f"AnymalTerrain env.step cuda (held ground) vs cpu (per-substep lookup) at {n} envs, {steps} steps, "
+          f"{f'seeded, motion {motion}' if seeded else 'spawned'}, actions x {actions_scale}: max abs err {errs}; "
+          f"witness {counts}")
+    if int(unexplained.sum()) or int(events["decision_flip_unexplained"].sum()):
+        _diagnose(cpu.model, rec, torch.nonzero(unexplained | events["decision_flip_unexplained"])[:, 0].tolist(),
+                  tols)
+        raise AssertionError(f"AnymalTerrain env.step: {int(unexplained.sum())} envs disagree with the CPU plain path "
+                             f"without a witness, {int(events['decision_flip_unexplained'].sum())} with a contact "
+                             f"decision that differs away from its threshold")
+    if int(bad.sum()) > max_share * n:
+        raise AssertionError(f"AnymalTerrain env.step: {int(bad.sum())} envs excused, more than {max_share}")
+    if contact_envs < n // 4:
+        raise AssertionError(f"only {contact_envs} of {n} envs in ground contact")
+    return {"max_err": errs, **counts}
+
+
+def _diagnose(model, rec, envs, tols) -> None:
+    """Per step, for each env: max |q| and |qd| difference at the step's
+    start, the obs error after it, the dofs within 0.01 rad of a limit and
+    the smallest |ground depth| of a geom against the held ground."""
+    from isaacgymenv_tpu_torch.physics import engine, kinematics
+
+    for e in envs:
+        for k, ((qa, qda), (qb, qdb)) in enumerate(zip(rec["cuda"]["states"], rec["cpu"]["states"])):
+            dof = qb[e, list(model.dof_q_adr)]
+            near = ((dof - model.dof_lower).abs() < 0.01) | ((dof - model.dof_upper).abs() < 0.01)
+            gpos = engine._geom_world(model, kinematics.fk(model, qb[e:e + 1], qdb[e:e + 1]))[4][0]
+            depth = rec["cpu"]["held"][k][0][e] + model.geom_radius - gpos[:, 2]
+            obs_err = (rec["cuda"]["obs"][k][e] - rec["cpu"]["obs"][k][e]).abs()
+            print(f"  env {e} step {k}: q err {float((qa[e] - qb[e]).abs().max()):.3g}, qd err "
+                  f"{float((qda[e] - qdb[e]).abs().max()):.3g}, obs err after {float(obs_err.max()):.3g} at "
+                  f"{int(obs_err.argmax())}, dofs at a limit {near.nonzero()[:, 0].tolist()}, min |depth| "
+                  f"{float(depth.abs().min()):.3g} (geom {int(depth.abs().argmin())}), depths>0 "
+                  f"{(depth > 0).nonzero()[:, 0].tolist()}")
 
 
 def cube_on_palm_state(env, n: int, seed: int):
@@ -597,9 +966,9 @@ def build_all() -> None:
                     print("  ptxas:", line.strip())
 
 
-def kernel_entry(name: str, source: str, replaces: str, launches: int, k: dict) -> dict:
+def kernel_entry(name: str, source: str, replaces: str, launches: int, k: dict, modes: str = "") -> dict:
     return {
-        "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+        "name": name, "modes": modes, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
         "max_abs_err": k["max_abs_err"], "max_err": k["max_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "bound_bytes": k["bytes"],
         "bound_flops": k["flops"], "library_ms": None,
@@ -622,8 +991,19 @@ def main() -> int:
     k1 = phase_kernel_vs_plain(env, fused)
     ground = phase_split_ground(env)
     del env
-    anymal = phase_slice("Anymal", N_ENVS, {"fused_substep": 1, "split_contacts": 0, "split_dynamics": 0}, card)
-    phase_slice_vs_plain("Anymal", {"obs": (1e-3, 1e-2), "rew": (1e-3, 1e-4), "done": (0, 0), "q": (2e-4, 2e-4)})
+    env = isaacgymenv_tpu_torch.make("AnymalTerrain", num_envs=N_ENVS, **TERRAIN_OVERRIDES)
+    k1t = phase_terrain_kernel_vs_plain(env, fused)
+    del env
+    mono = {"fused_substep": 1, "split_contacts": 0, "split_dynamics": 0}
+    anymal_tols = {"obs": (1e-3, 1e-2), "rew": (1e-3, 1e-4), "done": (0, 0), "q": (2e-4, 2e-4)}
+    anymal = phase_slice("Anymal", N_ENVS, mono, card)
+    phase_slice_vs_plain("Anymal", anymal_tols)
+    terrain = phase_slice("AnymalTerrain", N_ENVS, mono, card, TERRAIN_OVERRIDES)
+    # the env's own start through touchdown; the hard terrain standing still and moving
+    runs = {"spawned": (None, 1.0, 8), "standing": (STANDING, 0.0, 2), "moving": (1.0, 1.0, 2)}
+    terrain_env_step = {k: phase_terrain_slice_vs_plain(anymal_tols, motion, scale, MAX_CELL_SHARE[k], steps)
+                        for k, (motion, scale, steps) in runs.items()}
+    torch.cuda.empty_cache()
 
     env = isaacgymenv_tpu_torch.make("ShadowHand", num_envs=HAND_ENVS)
     k23 = phase_split_vs_plain(env)
@@ -638,13 +1018,19 @@ def main() -> int:
 
     kernels = [
         kernel_entry("fused_substep", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
-                     "isaacgymenv_tpu/physics/fused.py:430", anymal["fused_substep"], k1),
+                     "isaacgymenv_tpu/physics/fused.py:430", anymal["fused_substep"], k1, "flat (Anymal)"),
+        kernel_entry("fused_substep_terrain", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
+                     "isaacgymenv_tpu/physics/fused.py:430", terrain["fused_substep"], k1t,
+                     "terrain_mode + fric_mode (AnymalTerrain)"),
         kernel_entry("split_contacts", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
-                     "isaacgymenv_tpu/physics/fused_split.py:350", hand["split_contacts"], k23["split_contacts"]),
+                     "isaacgymenv_tpu/physics/fused_split.py:350", hand["split_contacts"], k23["split_contacts"],
+                     "flat or no_ground, pairs (ShadowHand)"),
         kernel_entry("split_dynamics", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
-                     "isaacgymenv_tpu/physics/fused_split.py:755", hand["split_dynamics"], k23["split_dynamics"]),
+                     "isaacgymenv_tpu/physics/fused_split.py:755", hand["split_dynamics"], k23["split_dynamics"],
+                     "joints, drives, tendons (ShadowHand)"),
     ]
-    print(json.dumps({"kernels": kernels, "split_pair": k23["pair"], "split_pair_ground": ground}))
+    print(json.dumps({"kernels": kernels, "split_pair": k23["pair"], "split_pair_ground": ground,
+                      "terrain_env_step": terrain_env_step}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

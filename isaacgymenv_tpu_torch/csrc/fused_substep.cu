@@ -3,8 +3,11 @@
 // Replaces the TPU kernel isaacgymenv_tpu/physics/fused.py:build_fused_substep
 // for the scenes that isaacgymenv_tpu_torch/physics/fused.py:fused_structural_ok
 // accepts: free roots + revolute/prismatic/fixed joints, DRIVE_* dof drives
-// with limits/friction/armature, sphere contacts against the flat ground
-// plane with the stiction slip carry, no pairs/anchors/tendons/sensors.
+// with limits/friction/armature, sphere contacts against the ground with the
+// stiction slip carry, no pairs/anchors/tendons/sensors.  The ground is the
+// plane z = 0, or a heightfield sampled by the caller once per control step
+// (terrain_mode: per-geom height and normal, held across the substeps as the
+// TPU kernel holds them); friction is the table's or per env (fric_mode).
 // Each thread runs all `substeps` iterations of one control step for its env:
 // FK -> ground contacts (two passes: live per-body counts, then forces) ->
 // drive/passive forces + implicit diagonal -> ABA -> velocity clamps and
@@ -14,7 +17,9 @@
 // Unlike the Pallas kernel, which unrolls the model into code at trace time,
 // this is one fixed source: the model arrives as data (struct FusedModel,
 // filled by the Python wrapper) and the caps of substep_common.cuh bound the per-thread
-// arrays.  One build serves every model under the caps.
+// arrays.  One build serves every model under the caps.  The optional inputs
+// of the TPU kernel's modes are pointers, null when the mode is off, so the
+// branches on them are uniform across the grid.
 //
 // Layout: every input and output is env-minor, element (k, env) at
 // k * n + env, so neighbouring threads touch neighbouring addresses.  q, qd
@@ -28,8 +33,9 @@
 // This simple design does nothing about that: per-body state (poses,
 // velocities, 6x6 articulated inertias) lives in per-thread local arrays,
 // the model is read from global memory (uniform across a warp, so served by
-// broadcast from cache), and the slip state is streamed from device memory
-// per geom.  Occupancy, shared memory and warp-per-env are later work.
+// broadcast from cache), and the slip state, the held ground and the per-env
+// friction are streamed from device memory per geom.  Occupancy, shared
+// memory and warp-per-env are later work.
 //
 // The per-env body is __host__ __device__ plain C++ so it also compiles as
 // host code; only the __global__ kernel and the launch function need nvcc.
@@ -50,9 +56,11 @@ struct EnvIO {
     const float* vel_target;  // (nd, n)
     const float* effort;      // (nd, n)
     float* slip;         // (ng*3, n) in/out
+    Ground ground;       // held height (ng, n) + normal (ng*3, n), friction (ng, n); null = off
     float* dof_force;    // (nd, n) out
     float* contact_force;   // (nb*3, n) out
     float* contact_torque;  // (nb*3, n) out
+    float* probe;        // (substeps*2*ng, n) out or null: per substep, each geom's depth and clamp margin
 };
 
 FS_HD static void fused_env(const FusedModel& M, const EnvIO& io, int e, int n,
@@ -76,9 +84,10 @@ FS_HD static void fused_env(const FusedModel& M, const EnvIO& io, int e, int n,
         }
         // ground contacts, pass 1: live active count per body; pass 2:
         // forces with the renormalized budgets
-        ground_count(M, kin, share);
+        ground_count(M, kin, io.ground, e, n, share);
         for (int i = 0; i < nb; ++i) share[i] = 1.0f / fmaxf(share[i], 1.0f);
-        ground_forces(M, kin, share, io.slip, e, n, h, hh, fext, cf);
+        float* probe = io.probe ? io.probe + (size_t)step * 2 * M.ng * n : nullptr;
+        ground_forces(M, kin, io.ground, share, io.slip, e, n, h, hh, fext, cf, probe);
         joint_forces(M, q, qd, io.pos_target, io.vel_target, io.effort, e, n, h, hh, tau, dextra);
         aba(M, kin, tau, dextra, fext, qdd);
         integrate(M, q, qd, qdd, h);
@@ -102,12 +111,15 @@ __global__ void fused_substep_kernel(const FusedModel* __restrict__ model, EnvIO
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// ground_h, ground_n, geom_fric and probe may be null (mode off / not wanted).
 extern "C" int fused_substep_launch(const void* model, float* q, float* qd,
                                     const float* pos_target, const float* vel_target,
-                                    const float* effort, float* slip, float* dof_force,
-                                    float* contact_force, float* contact_torque,
+                                    const float* effort, float* slip, const float* ground_h,
+                                    const float* ground_n, const float* geom_fric, float* dof_force,
+                                    float* contact_force, float* contact_torque, float* probe,
                                     int n, float h, float hh, int substeps, void* stream) {
-    EnvIO io{q, qd, pos_target, vel_target, effort, slip, dof_force, contact_force, contact_torque};
+    EnvIO io{q, qd, pos_target, vel_target, effort, slip, Ground{ground_h, ground_n, geom_fric},
+             dof_force, contact_force, contact_torque, probe};
     const int threads = 32;  // one warp per block: spreads 4096 envs over 128 SMs
     const int blocks = (n + threads - 1) / threads;
     fused_substep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(

@@ -174,7 +174,8 @@ FS_HD static void contacts_env(const SplitModel& S, const int* pint, const float
     }
 
     // pass 1: live contact counts per body (a pair loads both of its bodies)
-    if (!S.no_ground) ground_count(M, kin, share);
+    const Ground plane{nullptr, nullptr, nullptr};  // B2 has no terrain_mode or fric_mode yet
+    if (!S.no_ground) ground_count(M, kin, plane, e, n, share);
     for (int p = 0; p < S.n_pairs; ++p) {
         const int* pi = pint + PI_N * p;
         float c[3], nw[3];
@@ -188,7 +189,7 @@ FS_HD static void contacts_env(const SplitModel& S, const int* pint, const float
     for (int b = 0; b < nb; ++b) share[b] = 1.0f / fmaxf(share[b], 1.0f);
 
     // pass 2: forces with the renormalized budgets
-    if (!S.no_ground) ground_forces(M, kin, share, io.slip_g, e, n, h, hh, fext, cf);
+    if (!S.no_ground) ground_forces(M, kin, plane, share, io.slip_g, e, n, h, hh, fext, cf, nullptr);
     for (int p = 0; p < S.n_pairs; ++p) {
         const int* pi = pint + PI_N * p;
         const float* pf = pflt + PF_N * p;

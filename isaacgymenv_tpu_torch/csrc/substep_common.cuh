@@ -1,7 +1,8 @@
 // Per-env physics shared by the substep kernels (fused_substep.cu: B1;
 // split_substep.cu: B2 + B3): the model table, 3-vector and spatial algebra,
-// forward kinematics, flat-ground sphere contacts, joint forces, the
-// articulated-body algorithm and semi-implicit integration.
+// forward kinematics, sphere contacts with the plane or with a held sample
+// of a heightfield, joint forces, the articulated-body algorithm and
+// semi-implicit integration.
 //
 // Everything here is __host__ __device__ plain C++ on one env's per-thread
 // arrays, so it also compiles as host code (see fused_substep.cu).  The
@@ -280,71 +281,100 @@ FS_HD static void fk(const FusedModel& M, const float* q, const float* qd, Kin& 
 
 // ------------------------------------------------------ ground sphere contacts
 
+// The ground under one env's geoms, env-minor like every other input.  B1's
+// terrain_mode: h (ng, N) is the ground height and n (3 ng, N) the unit
+// normal under each geom, sampled by the caller once per control step and
+// held across its substeps; null h and n are the plane z = 0 with normal
+// (0, 0, 1).  fric_mode: mu (ng, N) is each env's friction; null takes the
+// table's geom_mu.  Each pointer is null or not for the whole launch, so
+// every branch on it is uniform across the grid.  B2 passes all three null.
+struct Ground {
+    const float* h;
+    const float* n;
+    const float* mu;
+};
+
 // Pass 1: adds each penetrating geom to its body's live contact count.
-FS_HD static void ground_count(const FusedModel& M, const Kin& k, float* count) {
+FS_HD static void ground_count(const FusedModel& M, const Kin& k, const Ground& G, int e, int n, float* count) {
     for (int g = 0; g < M.ng; ++g) {
         const int b = M.geom_body[g];
         const float* o = M.geom_off[g];
         float oz = k.Rw[b][6] * o[0] + k.Rw[b][7] * o[1] + k.Rw[b][8] * o[2];
-        if (M.geom_r[g] - (k.pw[b][2] + oz) > 0.0f) count[b] += 1.0f;
+        const float hg = G.h ? G.h[(size_t)g * n + e] : 0.0f;
+        if (hg + M.geom_r[g] - (k.pw[b][2] + oz) > 0.0f) count[b] += 1.0f;
     }
 }
 
 // Pass 2: Hunt-Crossley normal force and anchored-spring stiction of every
-// geom against the plane z = 0, with each body's budget share (1 / its live
+// geom against the ground, with each body's budget share (1 / its live
 // count); accumulates world [moment, force] about the body origin into fext
 // and the force into cf, and advances the slip state (3 per geom, in place).
-FS_HD static void ground_forces(const FusedModel& M, const Kin& k, const float* share, float* slip,
-                                int e, int n, float h, float hh,
-                                float (*fext)[6], float (*cf)[3]) {
+// The normal enters the contact point (off_w - r n from the body origin),
+// the normal and tangential velocities and the slip's projection onto the
+// tangent plane, in the order of the JAX package's contact.contact_forces.
+// probe, null or this substep's 2 ng rows (env-minor): each geom's depth
+// (row g) and f_mag - f_max (row ng + g), the margins of its activation and
+// of its Coulomb clamp, for a witness of decisions taken within rounding.
+FS_HD static void ground_forces(const FusedModel& M, const Kin& k, const Ground& G, const float* share,
+                                float* slip, int e, int n, float h, float hh,
+                                float (*fext)[6], float (*cf)[3], float* probe) {
     for (int g = 0; g < M.ng; ++g) {
         const int b = M.geom_body[g];
         const float r = M.geom_r[g];
-        float off_w[3], t[3];
+        float nv[3] = {0.0f, 0.0f, 1.0f}, off_w[3], t[3];
+        if (G.n)
+            for (int c = 0; c < 3; ++c) nv[c] = G.n[(size_t)(3 * g + c) * n + e];
+        const float hg = G.h ? G.h[(size_t)g * n + e] : 0.0f;
         mv3(k.Rw[b], M.geom_off[g], off_w);
-        const float depth = r - (k.pw[b][2] + off_w[2]);
+        const float depth = hg + r - (k.pw[b][2] + off_w[2]);
         const bool active = depth > 0.0f;
-        // material velocity at the contact point (sphere bottom)
-        float vel[3], bottom[3] = {0.0f, 0.0f, -r};
+        // material velocity at the contact point, the sphere's point nearest the ground
+        const float bottom[3] = {-r * nv[0], -r * nv[1], -r * nv[2]};
+        float vel[3], vt[3], s[3], ft[3];
         cross3(k.wang[b], off_w, t);
         for (int c = 0; c < 3; ++c) vel[c] = k.wlin[b][c] + t[c];
         cross3(k.wang[b], bottom, t);
         for (int c = 0; c < 3; ++c) vel[c] += t[c];
+        const float v_n = vel[0] * nv[0] + vel[1] * nv[1] + vel[2] * nv[2];
+        for (int c = 0; c < 3; ++c) vt[c] = vel[c] - v_n * nv[c];
         const float sh = share[b];
         const float meff = M.geom_meff[g] * sh;
         const float arrest = 0.25f * M.geom_meff[g] * sh / h;
         const float arrest_n = 1.0f * M.geom_meff[g] * sh / h;  // deadbeat normal cap
         const float kn_eff = fminf(M.kn, M.geom_meff_el[g] * sh / hh);
         const float d_pos = fminf(fmaxf(depth, 0.0f), 0.05f);
-        const float v_n = vel[2];
-        const float vt0 = vel[0], vt1 = vel[1];
         const float f_damp = fminf(M.kd * d_pos, arrest_n) * (-v_n);
         const float fn = active ? fmaxf(kn_eff * d_pos + f_damp, 0.0f) : 0.0f;
         const float kt_el = fminf(M.kt, meff / hh);
         const float ct = fminf(arrest, M.kt);
-        // anchored-spring stiction, projected onto the Coulomb cone
+        // anchored-spring stiction on the tangent plane, projected onto the Coulomb cone
         float* sp = slip + (size_t)(3 * g) * n + e;
-        const float s0 = sp[0] + vt0 * h;
-        const float s1 = sp[(size_t)n] + vt1 * h;
-        const float ft0 = -kt_el * s0 - ct * vt0;
-        const float ft1 = -kt_el * s1 - ct * vt1;
-        const float f_mag = sqrtf(ft0 * ft0 + ft1 * ft1);
-        const float f_max = M.geom_mu[g] * fn;
+        for (int c = 0; c < 3; ++c) s[c] = sp[(size_t)c * n] + vt[c] * h;
+        const float s_n = s[0] * nv[0] + s[1] * nv[1] + s[2] * nv[2];
+        for (int c = 0; c < 3; ++c) s[c] = s[c] - s_n * nv[c];
+        for (int c = 0; c < 3; ++c) ft[c] = -kt_el * s[c] - ct * vt[c];
+        const float f_mag = sqrtf(ft[0] * ft[0] + ft[1] * ft[1] + ft[2] * ft[2]);
+        const float mu = G.mu ? G.mu[(size_t)g * n + e] : M.geom_mu[g];
+        const float f_max = mu * fn;
         const bool clamp = f_mag > f_max;
         const float scale = clamp ? f_max / fmaxf(f_mag, 1e-9f) : 1.0f;
-        const float fx = ft0 * scale, fy = ft1 * scale;
         const float kdiv = fmaxf(kt_el, 1e-9f);
-        sp[0] = active ? (clamp ? -fx / kdiv : s0) : 0.0f;
-        sp[(size_t)n] = active ? (clamp ? -fy / kdiv : s1) : 0.0f;
-        sp[(size_t)2 * n] = 0.0f;
-        const float fw[3] = {active ? fx : 0.0f, active ? fy : 0.0f, fn};
-        const float lever[3] = {off_w[0], off_w[1], off_w[2] - r};
-        float tq[3];
+        float fw[3], lever[3], tq[3];
+        for (int c = 0; c < 3; ++c) {
+            const float f = ft[c] * scale;
+            sp[(size_t)c * n] = active ? (clamp ? -f / kdiv : s[c]) : 0.0f;
+            fw[c] = fn * nv[c] + (active ? f : 0.0f);
+            lever[c] = off_w[c] + bottom[c];
+        }
         cross3(lever, fw, tq);
         for (int c = 0; c < 3; ++c) {
             fext[b][c] += tq[c];
             fext[b][3 + c] += fw[c];
             cf[b][c] += fw[c];
+        }
+        if (probe) {
+            probe[(size_t)g * n + e] = depth;
+            probe[(size_t)(M.ng + g) * n + e] = f_mag - f_max;
         }
     }
 }

@@ -154,7 +154,7 @@ class Anymal(TaskEnv):
         ctrl = engine.Control.zero(self.model, actions.shape[0])
         return dataclasses.replace(ctrl, pos_target=self.action_scale * actions + self.default_dof_pos), state
 
-    def _post_physics(self, state, actions):
+    def _post_physics(self, state, actions, draws):
         return dataclasses.replace(state, ts={**state.ts, "actions": actions})
 
     def _base_vels(self, state):

@@ -1,18 +1,25 @@
 """Vectorized env runtime: `EnvState` and the `TaskEnv` step contract.
 
-Counterpart of `isaacgymenv_tpu/envs/base.py` with the deferred reset
-timing of the flat tasks.  `step(actions)`: clip actions -> control ->
-`control_freq_inv` x `engine.step` -> progress += 1 -> reset the envs flagged
-done by the PREVIOUS step -> obs -> reward and new done flags ->
-`time_outs` (progress >= max_len - 1 and done) -> clip obs.  The learner sees
-the terminal obs with done=1, and the next step returns the first obs of the
-new episode.
+Counterpart of `isaacgymenv_tpu/envs/base.py`.  `step(actions)`: clip
+actions -> control -> `control_freq_inv` x `engine.step` -> progress += 1 ->
+the task's post-physics hook, then one of the two reset timings:
+- "deferred" (the flat tasks): reset the envs flagged done by the PREVIOUS
+  step -> obs -> reward and new done flags.  The learner sees the terminal
+  obs with done=1, and the next step returns the first obs of the new
+  episode.
+- "immediate" (the terrain tasks): reward and done from the pre-reset
+  state -> reset the envs done now -> obs, the new episode's first.
+Then `time_outs` (progress >= max_len - 1 and done), the task's observation
+noise, and the obs clip.
 
-Random numbers: the reset draws and the per-step draws of the control (a
-task's `sample_step_draws`, e.g. ShadowHand's goal-only resets) are
+Random numbers: the initial task-state draws (a task's
+`sample_initial_draws`, e.g. AnymalTerrain's terrain levels and types), the
+reset draws, and the per-step draws (`sample_step_draws`: ShadowHand's
+goal-only resets, AnymalTerrain's pushes and observation noise) are
 whole-batch arrays that a task samples from the `torch.Generator` in
-`EnvState.rng`, or that the caller passes in (`reset_draws=`,
-`step_draws=`), so a test can feed both packages the same numbers.
+`EnvState.rng`, or that the caller passes in (`initial_draws=`,
+`reset_draws=`, `step_draws=`), so a test can feed both packages the same
+numbers.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ class TaskEnv(abc.ABC):
     terrain: Any = None
     num_obs: int
     num_actions: int
+    reset_timing = "deferred"  # or "immediate" (see the module docstring)
 
     def __init__(self, cfg: Dict[str, Any], device):
         self.cfg = cfg
@@ -88,25 +96,41 @@ class TaskEnv(abc.ABC):
 
     @abc.abstractmethod
     def _reward_done(self, state: EnvState, obs, actions) -> Tuple[EnvState, torch.Tensor, torch.Tensor, Dict]:
-        """(state', reward (N,), done (N,) bool, info)."""
+        """(state', reward (N,), done (N,) bool, info); `obs` is None under the
+        "immediate" reset timing (reward from the pre-reset state)."""
 
-    def _post_physics(self, state: EnvState, actions: torch.Tensor) -> EnvState:
+    def _post_physics(self, state: EnvState, actions: torch.Tensor, draws: Dict[str, torch.Tensor]) -> EnvState:
+        """Task dynamics after the physics (pushes, commands), from the step's draws."""
         return state
+
+    def _obs_noise(self, obs: torch.Tensor, draws: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Additive observation noise from the step's draws (none by default)."""
+        return obs
 
     def _initial_ts(self) -> Dict[str, torch.Tensor]:
         return {}
 
+    def sample_initial_draws(self, rng: torch.Generator, n: int) -> Dict[str, torch.Tensor]:
+        """Task-state entries drawn once at the start (none by default)."""
+        return {}
+
     # ------------------------------------------------------------------ API
-    def initial_state(self, seed: int = 0, reset_draws: Optional[Dict[str, torch.Tensor]] = None) -> EnvState:
-        """All envs reset; `reset_draws` overrides the draws from the seed."""
+    def initial_state(
+        self, seed: int = 0, reset_draws: Optional[Dict[str, torch.Tensor]] = None,
+        initial_draws: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> EnvState:
+        """All envs reset; `initial_draws` and `reset_draws` override the
+        draws from the seed."""
         rng = torch.Generator(device=self.device).manual_seed(seed)
         n = self.num_envs
+        if initial_draws is None:
+            initial_draws = self.sample_initial_draws(rng, n)
         state = EnvState(
             sim=make_zero_state(self.model, n),
             progress=torch.zeros(n, dtype=torch.int32, device=self.device),
             reset=torch.zeros(n, dtype=torch.bool, device=self.device),
             rng=rng,
-            ts=self._initial_ts(),
+            ts={**self._initial_ts(), **initial_draws},
         )
         draws = self.sample_reset_draws(rng, n) if reset_draws is None else reset_draws
         state = self._reset_envs(state, torch.ones(n, dtype=torch.bool, device=self.device), draws)
@@ -125,16 +149,25 @@ class TaskEnv(abc.ABC):
         for _ in range(self.control_freq_inv):
             sim = engine.step(self.model, self.terrain, sim, ctrl, self.dt, self.substeps)
         state = dataclasses.replace(state, sim=sim, progress=state.progress + 1)
-        state = self._post_physics(state, actions)
+        state = self._post_physics(state, actions, draws)
 
-        # deferred reset of the envs flagged done by the previous step
-        draws = self.sample_reset_draws(state.rng, self.num_envs) if reset_draws is None else reset_draws
-        state = self._reset_envs(state, state.reset, draws)
-        state = dataclasses.replace(state, sim=engine.forward(self.model, self.terrain, state.sim))
-        obs = self._observations(state, actions)
-        state, rew, done, info = self._reward_done(state, obs, actions)
-        timeout = (state.progress >= self.max_episode_length - 1) & done
+        if reset_draws is None:
+            reset_draws = self.sample_reset_draws(state.rng, self.num_envs)
+        if self.reset_timing == "immediate":
+            # reward and termination from the pre-reset state, reset now
+            state, rew, done, info = self._reward_done(state, None, actions)
+            timeout = (state.progress >= self.max_episode_length - 1) & done
+            state = self._reset_envs(state, done, reset_draws)
+            state = dataclasses.replace(state, sim=engine.forward(self.model, self.terrain, state.sim))
+            obs = self._observations(state, actions)
+        else:
+            # deferred reset of the envs flagged done by the previous step
+            state = self._reset_envs(state, state.reset, reset_draws)
+            state = dataclasses.replace(state, sim=engine.forward(self.model, self.terrain, state.sim))
+            obs = self._observations(state, actions)
+            state, rew, done, info = self._reward_done(state, obs, actions)
+            timeout = (state.progress >= self.max_episode_length - 1) & done
         state = dataclasses.replace(state, reset=done)
 
-        obs = torch.clamp(obs, -self.clip_obs, self.clip_obs)
+        obs = torch.clamp(self._obs_noise(obs, draws), -self.clip_obs, self.clip_obs)
         return state, {"obs": obs}, rew, done, {"time_outs": timeout, **info}

@@ -7,6 +7,7 @@ Nothing here imports JAX: the caller flattens the JAX side to numpy
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping
 
 import numpy as np
@@ -15,7 +16,8 @@ import torch
 from isaacgymenv_tpu_torch.api import resolve_device
 from isaacgymenv_tpu_torch.envs.base import EnvState
 from isaacgymenv_tpu_torch.learning.running_stats import RunningStats
-from isaacgymenv_tpu_torch.physics.types import SimState
+from isaacgymenv_tpu_torch.physics.contact import Heightfield
+from isaacgymenv_tpu_torch.physics.types import SimModel, SimState
 
 
 def policy_from_jax(params_np: Mapping) -> Dict[str, torch.Tensor]:
@@ -61,3 +63,18 @@ def env_state_from_jax(leaves: Mapping, device=None, seed: int = 0) -> EnvState:
         rng=torch.Generator(device=device).manual_seed(seed),
         ts={k: t(v) for k, v in leaves["ts"].items()},
     )
+
+
+def heightfield_from_jax(heights, hscale: float, border_x: float, border_y: float, device=None) -> Heightfield:
+    """A JAX `contact.Heightfield` (its `heights` as numpy, its static
+    fields as floats) -> the port's `Heightfield`."""
+    device = resolve_device(device)
+    return Heightfield(torch.tensor(np.asarray(heights, np.float32), device=device),
+                       float(hscale), float(border_x), float(border_y))
+
+
+def with_geom_friction(model: SimModel, geom_friction) -> SimModel:
+    """`model` with the JAX model's `geom_friction`: (ng,) shared, or
+    (N, ng) per env (AnymalTerrain's friction buckets)."""
+    gf = torch.tensor(np.asarray(geom_friction, np.float32), device=model.device)
+    return dataclasses.replace(model, geom_friction=gf)

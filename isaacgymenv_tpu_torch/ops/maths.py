@@ -7,6 +7,8 @@ leading batch dimensions: quaternions are `(..., 4)`, vectors `(..., 3)`.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -125,3 +127,15 @@ def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, dt: float) -> tor
     )
     dq = torch.cat([omega_world * k, torch.cos(half)], dim=-1)
     return quat_unit(quat_mul(dq, q))
+
+
+def quat_apply_yaw(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate v by the yaw component of q only."""
+    quat_yaw = torch.cat([torch.zeros_like(q[..., :2]), q[..., 2:4]], dim=-1)
+    return quat_apply(quat_unit(quat_yaw), v)
+
+
+def wrap_to_pi(angles: torch.Tensor) -> torch.Tensor:
+    """Wrap to (-pi, pi] (a floored remainder, as the JAX package's `%`)."""
+    a = torch.remainder(angles, 2.0 * math.pi)
+    return a - 2.0 * math.pi * (a > math.pi).to(a.dtype)

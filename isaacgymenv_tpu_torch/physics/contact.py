@@ -1,33 +1,128 @@
-"""Soft (penalty) contact of body-attached spheres with the ground plane and
-with the body-vs-body surfaces of the static pair list.
+"""Soft (penalty) contact of body-attached spheres with the ground and with
+the body-vs-body surfaces of the static pair list.
 
 Counterpart of the ground and pair paths of `isaacgymenv_tpu/physics/contact.py`:
 compliant Hunt-Crossley normal force with the impulse caps, anchored-spring
 stiction projected onto the Coulomb cone, and the live per-body contact
-counts that renormalize every contact's effective-mass budget.  The ground is
-the flat plane only (`terrain=None`); the surfaces are spheres, boxes,
-capsules and capped cylinders.  Heightfields, the containment wall
-(`SURF_WALL`), anchors and SDFs are not ported.
+counts that renormalize every contact's effective-mass budget.  The ground
+is the flat plane z = 0 (`terrain=None`) or a `Heightfield` with the
+reference's two-corner-min height lookup; the surfaces are spheres, boxes,
+capsules and capped cylinders.  The containment wall (`SURF_WALL`), anchors
+and SDFs are not ported.
+
+Where the ground is looked up: the plain `engine._substep` loop looks the
+heightfield up every substep at the current geom positions, as the JAX XLA
+path does.  The fused kernel (B1) takes the ground height and normal per
+geom sampled once per control step (`held_ground`) and holds them across the
+substeps; its plain version passes that `HeldGround` here as the terrain.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+from isaacgymenv_tpu_torch.ops import maths
 from isaacgymenv_tpu_torch.physics import spatial
 
 
-def _require_flat(terrain) -> None:
-    if terrain is not None:
-        raise NotImplementedError("heightfield terrain is not ported; only terrain=None")
+@dataclass
+class Heightfield:
+    """Env-shared terrain grid (host-generated, `utils/terrain.py`)."""
+
+    heights: torch.Tensor  # (H, W) heights in meters (row = x, col = y)
+    hscale: float          # meters per cell
+    border_x: float        # world x of grid row 0
+    border_y: float        # world y of grid col 0
+
+    def to(self, device) -> "Heightfield":
+        return Heightfield(self.heights.to(device), self.hscale, self.border_x, self.border_y)
+
+
+@dataclass
+class HeldGround:
+    """Ground height (N, ng) and unit normal (N, ng, 3) per geom, sampled
+    once per control step and held across its substeps (the kernel's
+    semantics, `held_ground`)."""
+
+    height: torch.Tensor
+    normal: torch.Tensor
+
+
+def height_at(terrain: Optional[Heightfield], x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Terrain height under world (x, y).
+
+    The reference's two-corner-min lookup: the min of the cell corner and its
+    +1,+1 diagonal, not a bilinear value, with the indices truncated toward
+    zero and clipped to [0, H-2] x [0, W-2].  The cell index is computed as
+    the JAX package does, (x - border) / hscale then truncation; the divisor
+    is a tensor so that CUDA divides too (a Python-scalar divisor becomes a
+    multiplication by its reciprocal there, which moves cell edges).
+    """
+    if terrain is None:
+        return torch.zeros_like(x)
+    H, W = terrain.heights.shape
+    hscale = torch.tensor(terrain.hscale, dtype=x.dtype, device=x.device)
+    ix = torch.clamp(((x - terrain.border_x) / hscale).to(torch.int32), 0, H - 2).long()
+    iy = torch.clamp(((y - terrain.border_y) / hscale).to(torch.int32), 0, W - 2).long()
+    return torch.minimum(terrain.heights[ix, iy], terrain.heights[ix + 1, iy + 1])
+
+
+def terrain_normal(terrain: Optional[Heightfield], x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Surface normal by central differences of `height_at` at +-hscale."""
+    if terrain is None:
+        n = torch.zeros(x.shape + (3,), dtype=x.dtype, device=x.device)
+        n[..., 2] = 1.0
+        return n
+    eps = terrain.hscale
+    two_eps = torch.tensor(2 * eps, dtype=x.dtype, device=x.device)
+    dhdx = (height_at(terrain, x + eps, y) - height_at(terrain, x - eps, y)) / two_eps
+    dhdy = (height_at(terrain, x, y + eps) - height_at(terrain, x, y - eps)) / two_eps
+    n = torch.stack([-dhdx, -dhdy, torch.ones_like(x)], dim=-1)
+    return n / torch.linalg.norm(n, dim=-1, keepdim=True)
+
+
+def held_ground(model, terrain: Heightfield, body_pos: torch.Tensor, body_quat: torch.Tensor) -> HeldGround:
+    """Ground height and normal under every geom at the cached body poses
+    (N, nb, 3) / (N, nb, 4), as JAX `engine.step` samples them for the
+    fused kernel once per control step."""
+    gb = list(model.geom_body)
+    off = model.geom_offset.expand(body_pos.shape[0], model.ng, 3)
+    gpos = body_pos[:, gb] + maths.quat_rotate(body_quat[:, gb], off)
+    gx, gy = gpos[..., 0], gpos[..., 1]
+    return HeldGround(height_at(terrain, gx, gy), terrain_normal(terrain, gx, gy))
+
+
+def _height_under(terrain, geom_pos_w: torch.Tensor) -> Optional[torch.Tensor]:
+    """(..., ng) ground height under each geom: None for the plane, looked
+    up in a `Heightfield`, or held."""
+    if terrain is None:
+        return None
+    if isinstance(terrain, HeldGround):
+        return terrain.height
+    return height_at(terrain, geom_pos_w[..., 0], geom_pos_w[..., 1])
+
+
+def _normal_under(terrain, geom_pos_w: torch.Tensor) -> torch.Tensor:
+    """(..., ng, 3) unit ground normal under each geom."""
+    if isinstance(terrain, HeldGround):
+        return terrain.normal
+    return terrain_normal(terrain, geom_pos_w[..., 0], geom_pos_w[..., 1])
+
+
+def _depth(model, hgt: Optional[torch.Tensor], geom_pos_w: torch.Tensor) -> torch.Tensor:
+    """Penetration along +z of each sphere's bottom below the ground (the
+    plane's arithmetic unchanged when there is no height)."""
+    if hgt is None:
+        return model.geom_radius - geom_pos_w[..., 2]
+    return hgt + model.geom_radius - geom_pos_w[..., 2]
 
 
 def ground_active(model, terrain, geom_pos_w: torch.Tensor) -> torch.Tensor:
-    """(..., ng) bool: geoms penetrating the ground plane z = 0."""
-    _require_flat(terrain)
-    return (model.geom_radius - geom_pos_w[..., 2]) > 0.0
+    """(..., ng) bool: geoms penetrating the ground."""
+    return _depth(model, _height_under(terrain, geom_pos_w), geom_pos_w) > 0.0
 
 
 def _pair_tables(model, device):
@@ -123,16 +218,15 @@ def contact_forces(
     slip: Optional[torch.Tensor] = None,      # (..., ng, 3) stiction state
     geom_ang_w: Optional[torch.Tensor] = None,  # (..., ng, 3) body angular vel
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-body external forces from ground contact.
+    """Per-body external forces from ground contact (`terrain`: None for the
+    plane, a `Heightfield`, or a `HeldGround`).
 
     Returns f_ext_world (..., nb, 6) [moment, force] about each body origin in
     world axes, body_contact_force (..., nb, 3), and slip_new (..., ng, 3).
     """
-    _require_flat(terrain)
     radius = model.geom_radius
-    n = torch.zeros_like(geom_pos_w)
-    n[..., 2] = 1.0
-    depth = radius - geom_pos_w[..., 2]
+    n = _normal_under(terrain, geom_pos_w)
+    depth = _depth(model, _height_under(terrain, geom_pos_w), geom_pos_w)
     active = depth > 0.0
 
     kn, kd, kt = model.contact_stiffness, model.contact_damping, model.tangential_stiffness

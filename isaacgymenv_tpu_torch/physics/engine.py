@@ -4,7 +4,8 @@ Counterpart of `isaacgymenv_tpu/physics/engine.py`.  `step` advances one
 control period of `substeps` substeps through one of three paths, which
 `_use_fused` picks:
 - "mono": `fused.fused_substep`, one CUDA kernel for all substeps (B1), for
-  flat-ground scenes without pairs, tendons or `no_ground`;
+  scenes without pairs, tendons or `no_ground`, on the plane or on a
+  heightfield, with per-env friction or without;
 - "split": `fused_split.split_substep`, a contacts kernel and a dynamics
   kernel per substep (B2 + B3), for scenes with pairs, tendons or
   `no_ground` within the split tables' caps;
@@ -230,9 +231,21 @@ def _substeps_plain(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip
     return q, qd, dof_force, cf, ct, slip_g, slip_p
 
 
-def _check_supported(model: SimModel, terrain, ctrl: Control) -> None:
+def _check_supported(model: SimModel, terrain, ctrl: Control, kind: Optional[str], device_type: str) -> None:
+    """Raise on a scene that no path of the port runs as the JAX package does.
+
+    Heightfield terrain and per-env friction (`geom_friction` (N, ng)) run on
+    B1 on the card and in the plain loop on the CPU.  On the card a scene
+    that does not go to B1 (`kind` "split", or None: over the kernels' caps,
+    or per-env leaves B1 does not take) raises instead of quietly running
+    the plain loop there."""
+    per_env_friction = model.geom_friction.ndim == 2
+    off_b1 = device_type != "cpu" and kind != "mono"
     unsupported = {
-        "heightfield terrain": terrain is not None,
+        "terrain other than a Heightfield": terrain is not None and not isinstance(terrain, contact_mod.Heightfield),
+        "heightfield terrain off B1": off_b1 and terrain is not None,
+        "per-env friction off B1": off_b1 and per_env_friction,
+        "per-env friction with pair contacts": model.n_pairs and per_env_friction,
         "containment-wall surfaces": any(k not in (0, 1, 2, 3) for k in model.surf_kind),
         "SDF colliders": model.n_sdf,
         "world anchors": model.anchor_body,
@@ -270,8 +283,17 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
     """Advance one control period: `substeps` x (dt / substeps), then `forward`.
 
     Contact/dof forces are those of the last substep; the body caches are
-    refreshed against the new q/qd."""
-    _check_supported(model, terrain, ctrl)
+    refreshed against the new q/qd.  On a heightfield, B1 takes the ground
+    under each geom sampled once from the cached body poses (`state.body_pos`,
+    `body_quat`) and held across the substeps (JAX `engine.step`'s kernel
+    semantics); a CPU state runs the plain loop instead, which looks the
+    ground up every substep, as the JAX package's CPU backend takes its XLA
+    path.  So does a CPU split scene with per-env friction: the split pair's
+    plain version has neither mode."""
+    kind = _use_fused(model, state.q)
+    _check_supported(model, terrain, ctrl, kind, state.q.device.type)
+    if state.q.device.type == "cpu" and (terrain is not None or kind == "split" and model.geom_friction.ndim == 2):
+        kind = None
     h = dt / substeps
     z = lambda k: torch.zeros(state.q.shape[:-1] + (k, 3), dtype=state.q.dtype, device=state.q.device)  # noqa: E731
     # zeros = "no anchor yet": re-anchored on the first active substep
@@ -280,12 +302,15 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
     n = state.q.shape[0]
     nd = model.nd
     targets = (ctrl.pos_target.expand(n, nd), ctrl.vel_target.expand(n, nd), ctrl.effort.expand(n, nd))
-    kind = _use_fused(model, state.q)
     if kind == "mono":
         from isaacgymenv_tpu_torch.physics import fused as fused_mod
 
+        modes = {"geom_fric": model.geom_friction if model.geom_friction.ndim == 2 else None}
+        if terrain is not None:
+            held = contact_mod.held_ground(model, terrain, state.body_pos, state.body_quat)
+            modes.update(ground_h=held.height, ground_n=held.normal)
         q, qd, dof_force, cf, ct, slip_g = fused_mod.fused_substep(
-            fused_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, h, substeps
+            fused_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, h, substeps, **modes
         )
     elif kind == "split":
         from isaacgymenv_tpu_torch.physics import fused_split as split_mod

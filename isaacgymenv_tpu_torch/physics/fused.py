@@ -17,6 +17,7 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -29,7 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from isaacgymenv_tpu_torch.physics import engine
+from isaacgymenv_tpu_torch.physics import contact, engine
 from isaacgymenv_tpu_torch.physics.types import (
     JT_FIXED,
     JT_FREE,
@@ -89,15 +90,27 @@ class FusedModel(ctypes.Structure):
 
 
 def fused_structural_ok(model: SimModel, num_envs: int) -> bool:
-    """True when the scene's joints and sizes fit the kernel; anything else
-    takes the plain path.  Features neither path has yet (terrain, pairs,
-    sensors, ...) are refused before this by `engine._check_supported`."""
+    """True when the scene's joints, sizes and leaves fit the kernel; anything
+    else takes the plain path.  The one per-env leaf the kernel takes is
+    `geom_friction` (num_envs, ng) (`fric_mode`); every other model leaf must
+    be shared by all envs.  Features neither path has yet (pairs with
+    per-env friction, sensors, ...) are refused before this by
+    `engine._check_supported`."""
     if num_envs < 1:
         return False
     if any(jt not in (JT_FREE, JT_REVOLUTE, JT_PRISMATIC, JT_FIXED) for jt in model.jtype):
         return False
     # free joints only at actor roots: the ABA inward pass ends there
     if any(jt == JT_FREE and par >= 0 for jt, par in zip(model.jtype, model.parent)):
+        return False
+    shared = {
+        "body_mass": 1, "body_com": 2, "body_inertia": 3, "joint_pos": 2, "joint_quat": 2, "joint_axis": 2,
+        "geom_offset": 2, "geom_radius": 1, "geom_meff": 1, "gravity": 1,
+        "dof_stiffness": 1, "dof_damping": 1, "dof_lower": 1, "dof_upper": 1,
+    }
+    if any(getattr(model, name).ndim != nd for name, nd in shared.items()):
+        return False
+    if model.geom_friction.ndim == 2 and tuple(model.geom_friction.shape) != (num_envs, model.ng):
         return False
     return (0 < model.nd <= MAX_DOFS and model.nb <= MAX_BODIES and model.ng <= MAX_GEOMS
             and model.nq <= MAX_Q and model.nv <= MAX_V)
@@ -155,7 +168,9 @@ def pack_model(model: SimModel) -> FusedModel:
         "dof_effort": c(model.dof_effort), "dof_maxvel": c(model.dof_maxvel),
         "dof_armature": c(model.dof_armature), "dof_friction": c(model.dof_friction),
         "geom_off": c(model.geom_offset), "geom_r": c(model.geom_radius),
-        "geom_mu": c(model.geom_friction), "geom_meff": c(model.geom_meff),
+        # per-env friction (N, ng) reaches the kernel as an input, not here
+        "geom_mu": c(model.geom_friction) if model.geom_friction.ndim == 1 else [],
+        "geom_meff": c(model.geom_meff),
         "geom_meff_el": c(model.geom_meff if model.geom_meff_el is None else model.geom_meff_el),
         "gravity": c(model.gravity),
     }
@@ -220,12 +235,21 @@ def stream(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
-def fused_substep_plain(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float, substeps: int):
-    """The kernel's plain version: `engine._substep` looped `substeps` times.
+def fused_substep_plain(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float,
+                        substeps: int, ground_h=None, ground_n=None, geom_fric=None):
+    """The kernel's plain version: `engine._substep` looped `substeps` times,
+    with the kernel's semantics for its optional inputs: the ground height
+    `ground_h` (N, ng) and normal `ground_n` (N, ng, 3) under each geom are
+    held across the substeps (None: the plane z = 0), and `geom_fric` (N, ng)
+    is the per-env friction (None: the model's `geom_friction`).
 
     Returns (q, qd, dof_force, contact_force, contact_torque, slip_g)."""
+    model = tables.model
+    if geom_fric is not None:
+        model = dataclasses.replace(model, geom_friction=geom_fric)
+    terrain = None if ground_h is None else contact.HeldGround(ground_h, ground_n)
     ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
-    return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, None, h, substeps)[:6]
+    return engine._substeps_plain(model, terrain, q, qd, ctrl, slip_g, None, h, substeps)[:6]
 
 
 def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_substep") -> None:
@@ -236,38 +260,62 @@ def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_substep"
         )
 
 
-def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float, substeps: int):
+def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float, substeps: int,
+                  ground_h=None, ground_n=None, geom_fric=None, probe=None):
     """All `substeps` substeps of one control step; same outputs as
     `fused_substep_plain`.  A CUDA `q` launches the kernel; a CPU `q` runs the
-    plain version."""
+    plain version.
+
+    `ground_h`/`ground_n` (terrain_mode) and `geom_fric` (fric_mode) are the
+    kernel's optional inputs, as `fused_substep_plain` reads them.  `probe`,
+    when given, is an (N, substeps, 2, ng) float32 CUDA tensor that the
+    kernel fills, per substep and geom, with the ground depth ([:, s, 0],
+    active where > 0) and f_mag - f_max of the Coulomb clamp ([:, s, 1],
+    clamped where > 0): a witness of the decisions taken near their
+    thresholds, for checks; nothing on the main path reads it."""
+    if (ground_h is None) != (ground_n is None):
+        raise ValueError("fused_substep: ground_h and ground_n go together")
     if q.device.type == "cpu":
-        return fused_substep_plain(tables, q, qd, pos_target, vel_target, effort, slip_g, h, substeps)
+        if probe is not None:
+            raise ValueError("fused_substep: probe is an output of the kernel only")
+        return fused_substep_plain(tables, q, qd, pos_target, vel_target, effort, slip_g, h, substeps,
+                                   ground_h, ground_n, geom_fric)
     if q.device.type != "cuda":
         raise ValueError(f"fused_substep: unsupported device {q.device}")
     model = tables.model
     n, dev = q.shape[0], q.device
     if tables.table.device != dev:
         raise ValueError(f"fused_substep: tables on {tables.table.device}, state on {dev}")
+    if geom_fric is None and model.geom_friction.ndim != 1:
+        raise ValueError("fused_substep: a model with per-env friction needs geom_fric")
     _check("q", q, (n, model.nq), dev)
     _check("qd", qd, (n, model.nv), dev)
     for name, t in (("pos_target", pos_target), ("vel_target", vel_target), ("effort", effort)):
         _check(name, t, (n, model.nd), dev)
     _check("slip_g", slip_g, (n, model.ng, 3), dev)
+    for name, t, shape in (("ground_h", ground_h, (n, model.ng)), ("ground_n", ground_n, (n, model.ng, 3)),
+                           ("geom_fric", geom_fric, (n, model.ng)), ("probe", probe, (n, substeps, 2, model.ng))):
+        if t is not None:
+            _check(name, t, shape, dev)
 
     qT, qdT, tgtT, vtgT, effT, slipT = (to_minor(t, n) for t in (q, qd, pos_target, vel_target, effort, slip_g))
+    ghT, gnT, gfT = (None if t is None else to_minor(t, n) for t in (ground_h, ground_n, geom_fric))
     dof_force = torch.empty((model.nd, n), dtype=torch.float32, device=dev)
     cf = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
     ct = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
+    probeT = None if probe is None else torch.empty((substeps * 2 * model.ng, n), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.fused_substep_launch(
             ptr(tables.table), ptr(qT), ptr(qdT), ptr(tgtT), ptr(vtgT), ptr(effT),
-            ptr(slipT), ptr(dof_force), ptr(cf), ptr(ct),
+            ptr(slipT), ptr(ghT), ptr(gnT), ptr(gfT), ptr(dof_force), ptr(cf), ptr(ct), ptr(probeT),
             n, float(h), float(h * h), int(substeps), stream(dev),
         )
     if err != 0:
         raise RuntimeError(f"fused_substep kernel launch failed: CUDA error {err}")
     fused_substep.launches += 1
+    if probe is not None:
+        probe.copy_(from_minor(probeT, n, substeps, 2, model.ng))
     return (
         from_minor(qT, n, model.nq),
         from_minor(qdT, n, model.nv),
@@ -316,7 +364,7 @@ def build_library(source: str = SOURCE) -> tuple[str, float, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library()[0])
     fn = lib.fused_substep_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
                                              ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -2,14 +2,16 @@
 
     python3 scripts/profile_torch_slice.py
 
-For each ported slice (Anymal at 4096 envs, ShadowHand at 16384, the widths
-chip_smoke.py drives), runs the chip_smoke.py acting step (normalize obs ->
-ActorCritic -> sample actions -> env.step) for N_STEPS timed steps and
-reports, with the card's name and power limit:
+For each ported slice (Anymal at 4096 envs, AnymalTerrain at 4096 on the
+full trimesh grid, ShadowHand at 16384, the widths chip_smoke.py drives),
+runs the chip_smoke.py acting step (normalize obs -> ActorCritic -> sample
+actions -> env.step) for N_STEPS timed steps and reports, with the card's
+name and power limit:
 1. synchronized phase times: every phase ends in torch.cuda.synchronize(),
    inclusive host wall ms per acting step of the policy, `env.step`,
    `engine.step` (kernels + FK refresh) and `engine.forward` (FK refresh;
-   twice per env step);
+   twice per env step, three times for AnymalTerrain, whose pushes refresh
+   the caches every step), with the calls per step;
 2. a torch.profiler window without synchronization: wall ms per step,
    device-busy ms per step (sum of kernel times), the idle share, CUDA
    kernel launches per step, and the kernels with the most device time.
@@ -29,18 +31,20 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SLICES = (("Anymal", 4096), ("ShadowHand", 16384))  # as chip_smoke.py
+# (task, envs, make() overrides), as chip_smoke.py
+SLICES = (("Anymal", 4096, {}), ("AnymalTerrain", 4096, {"env.terrain.terrainType": "trimesh"}),
+          ("ShadowHand", 16384, {}))
 N_STEPS = 20
 
 
-def profile(task: str, n_envs: int) -> dict:
+def profile(task: str, n_envs: int, overrides: dict) -> dict:
     import isaacgymenv_tpu_torch
     from isaacgymenv_tpu_torch.learning.networks import ActorCritic
     from isaacgymenv_tpu_torch.learning.running_stats import RunningStats
     from isaacgymenv_tpu_torch.physics import engine
     from isaacgymenv_tpu_torch.utils.config import load_train_config
 
-    env = isaacgymenv_tpu_torch.make(task, num_envs=n_envs)
+    env = isaacgymenv_tpu_torch.make(task, num_envs=n_envs, **overrides)
     torch.manual_seed(0)
     policy = ActorCritic.from_train_config(load_train_config(task), env.num_obs, env.num_actions).to(env.device)
     gen = torch.Generator(device=env.device).manual_seed(0)
@@ -55,6 +59,7 @@ def profile(task: str, n_envs: int) -> dict:
 
     # ---- 1. synchronized phase times (inclusive), by wrapping the entry points
     totals = collections.defaultdict(float)
+    calls = collections.Counter()
 
     def timed(name, fn):
         def wrapper(*a, **k):
@@ -63,6 +68,7 @@ def profile(task: str, n_envs: int) -> dict:
             out = fn(*a, **k)
             torch.cuda.synchronize()
             totals[name] += time.perf_counter() - t0
+            calls[name] += 1
             return out
         return wrapper
 
@@ -75,12 +81,13 @@ def profile(task: str, n_envs: int) -> dict:
         for i in range(3 + N_STEPS):
             if i == 3:  # after 3 warm-up steps
                 totals.clear()
+                calls.clear()
             state, obs_dict, *_r = timed_env_step(state, timed_act(obs))
             obs = obs_dict["obs"]
     engine.step, engine.forward = originals
     phases = {k: 1e3 * v / N_STEPS for k, v in totals.items()}
     for k, v in phases.items():
-        print(f"{task} synchronized {k}: {v:.3f} ms per acting step")
+        print(f"{task} synchronized {k}: {v:.3f} ms per acting step ({calls[k] / N_STEPS:g} calls per step)")
 
     # ---- 2. profiler window, no synchronization inside
     from torch.profiler import ProfilerActivity, profile
@@ -110,6 +117,7 @@ def profile(task: str, n_envs: int) -> dict:
         print(f"  {t['ms_per_step']:.4f} ms/step  {t['kernel']}")
     return {
         "envs": n_envs, "steps": N_STEPS, "synchronized_ms": phases,
+        "calls_per_step": {k: v / N_STEPS for k, v in calls.items()},
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "launches_per_step": len(kernels) / N_STEPS, "top_kernels": top,
     }
@@ -124,8 +132,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     out = {"card": card}
-    for task, n_envs in SLICES:
-        out[task] = profile(task, n_envs)
+    for task, n_envs, overrides in SLICES:
+        out[task] = profile(task, n_envs, overrides)
         torch.cuda.empty_cache()
     print(card)
     print(json.dumps(out))
