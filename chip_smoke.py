@@ -49,8 +49,19 @@ Phases (each raises on failure; the script then exits non-zero):
    acting steps with the [512, 512, 256, 128] policy; launch counts (each
    split kernel twice per step, no B1); then 2 steps at 128 envs from the
    resting state held against the CPU plain path;
-9. the `kernels` JSON line (B1 once per mode set: flat, terrain + friction;
-   B2; B3), the card line, and the final ok line.
+9. the Ant slice: B1's force-sensor output against `fused_substep_plain` at
+   4096 Ant envs (the four feet, revolute) from a state settled onto the
+   feet, and on tests/test_fused.py's scene (a fixed-joint sensor body) at
+   4096 envs, with the decision witness of phase 4 and the sensor
+   wrenches' tolerance of tests/test_fused.py; 100 acting steps at 4096
+   envs (B1 once per step); the env step against the CPU at 128 envs, obs
+   with the sensor entries; then the training CLI in-process
+   (`task=Ant`, 4096 envs, TRAIN_EPOCHS epochs, then a resume from its
+   checkpoint for one more): finite losses and learning rate, B1 launched
+   horizon_length times per epoch; rollout and update times, env-steps/s
+   and the mean return as information;
+10. the `kernels` JSON line (B1 once per mode set: flat, terrain + friction,
+   sensors; B2; B3), the card line, and the final ok line.
 """
 
 from __future__ import annotations
@@ -78,6 +89,8 @@ TOLS = {
     "q": (2e-4, 2e-4), "qd": (2e-3, 2e-3), "dof_force": (2e-3, 2e-3),
     "contact_force": (2e-3, 2e-2), "contact_torque": (2e-3, 2e-2), "slip_g": (2e-4, 2e-4),
 }
+# the sensor wrenches' tolerance of tests/test_fused.py:126-130
+SENSOR_TOLS = {**TOLS, "joint_wrench": (2e-3, 5e-2)}
 # those of tests/test_fused_split.py:93-152, for the split pair's outputs
 SPLIT_TOLS = {
     "q": (5e-4, 5e-4), "qd": (2e-3, 1e-2), "dof_force": (2e-3, 1e-2),
@@ -150,22 +163,35 @@ def _stage_flops(model) -> dict:
 TERRAIN_GROUND_EXTRA = 44
 
 
+def sensor_flops(model) -> int:
+    """fp32 operations of the force-sensor output per env, once per launch
+    (csrc/substep_common.cuh aba, last substep): IA a and + pA for each
+    sensor body, and for a 1-dof body the unreduced inertia's term U (U.a) / d."""
+    from isaacgymenv_tpu_torch.physics.types import JT_PRISMATIC, JT_REVOLUTE
+
+    one_dof = sum(model.jtype[b] in (JT_REVOLUTE, JT_PRISMATIC) for b in model.sensor_body)
+    return len(model.sensor_body) * (MV6 + 6) + one_dof * (12 + 1 + 12)
+
+
 def fused_substep_flops(model, n: int, substeps: int, terrain: bool = False) -> int:
-    """fp32 operations that csrc/fused_substep.cu performs for one launch."""
+    """fp32 operations that csrc/fused_substep.cu performs for one launch
+    (the sensor output when the model has sensors)."""
     extra = TERRAIN_GROUND_EXTRA * model.ng if terrain else 0
-    return (sum(_stage_flops(model).values()) + extra) * substeps * n
+    return (sum(_stage_flops(model).values()) + extra) * substeps * n + sensor_flops(model) * n
 
 
 def fused_substep_bytes(model, n: int, terrain: bool = False, fric: bool = False) -> int:
     """Bytes one launch of B1 must move: each input read once, each output
     written once; the held ground (4 floats per geom) and the per-env
-    friction (1) when their modes are on."""
+    friction (1) when their modes are on, the sensor wrenches (6 per sensor)
+    when the model has sensors."""
     return 4 * n * (
         2 * (model.nq + model.nv + 3 * model.ng)   # q, qd, slip in and out
         + 3 * model.nd                             # targets + effort in
         + model.nd + 6 * model.nb                  # dof_force, contact force + torque out
         + (4 * model.ng if terrain else 0)         # ground_h, ground_n in
         + (model.ng if fric else 0)                # geom_fric in
+        + 6 * len(model.sensor_body)               # joint_wrench out
     )
 
 
@@ -396,6 +422,117 @@ def phase_terrain_kernel_vs_plain(env, fused) -> dict:
           f"bytes -> {b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
     return {"max_abs_err": max(max_err.values()), "max_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "decision_flip_envs": n_flip, "contact_envs": contact_envs, "tilted_active_geoms": tilted, **b}
+
+
+def sensor_kernel_vs_plain(label: str, fused, model, q, qd, tgt, eff, slip, h: float, substeps: int) -> dict:
+    """B1 with its force-sensor output against `fused_substep_plain` on the
+    same inputs (flat ground), at the tolerances of tests/test_fused.py with
+    the sensor wrenches'; envs excused only where B1's probe and the plain
+    probe show a contact decision taken the other way within rounding of
+    its threshold (the decision witness of the terrain phase)."""
+    n, dev = q.shape[0], q.device
+    tables = fused.tables_for(model, dev)
+    zero = torch.zeros_like(tgt)
+    args = (q, qd, tgt, zero, eff, slip, h, substeps)
+    probe = torch.empty((n, substeps, 2, model.ng), device=dev)
+    out = fused.fused_substep(tables, *args, probe=probe)
+    with PlainProbe() as rec:
+        ref = fused.fused_substep_plain(tables, *args)
+    torch.cuda.synchronize()
+    if out[6] is None or tuple(out[6].shape) != (n, len(model.sensor_body), 6):
+        raise AssertionError(f"{label}: B1 returned no sensor wrenches of shape (N, ns, 6)")
+    w = decision_flips(probe.cpu(), rec.probe(0, substeps))
+    n_flip, unexplained = int(w["flipped"].sum()), int((w["flipped"] & ~w["explained"]).sum())
+    if unexplained:
+        raise AssertionError(f"{label}: contact decisions differ without a geom at its threshold in {unexplained} envs")
+    if n_flip > MAX_THRESHOLD_SHARE * n:
+        raise AssertionError(f"{label}: {n_flip} envs have decisions that differ; more than {MAX_THRESHOLD_SHARE}")
+    max_err = _compare(label, out, ref, SENSOR_TOLS, w["flipped"].to(dev))
+    contact_envs = int((ref[3].abs().sum(-1) > 0).any(-1).sum())
+    print(f"{label} vs plain at {n} envs, {substeps} substeps, sensors on bodies {model.sensor_body}: max abs err "
+          f"{max_err} over the {n - n_flip} envs whose contact decisions agree ({n_flip} flips, each within "
+          f"rounding of its threshold); envs in ground contact at the last substep {contact_envs}; max |wrench| "
+          f"{float(ref[6].abs().max()):.4g}")
+    if contact_envs < n // 4:
+        raise AssertionError(f"{label}: only {contact_envs} envs have ground contact; the feet are not loaded")
+
+    ms = cuda_ms(lambda: fused.fused_substep(tables, *args))
+    plain_ms = cuda_ms(lambda: fused.fused_substep_plain(tables, *args), warmup=1, runs=5)
+    b = bound(fused_substep_bytes(model, n), fused_substep_flops(model, n, substeps))
+    print(f"fused_substep ({label}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound: {b['bytes']} bytes -> "
+          f"{b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
+    return {"max_abs_err": max(max_err.values()), "max_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "decision_flip_envs": n_flip, "contact_envs": contact_envs, **b}
+
+
+@torch.no_grad()
+def settled_ant_state(env, steps: int = 25, seed: int = 0):
+    """q, qd, slip of `env` (Ant) after `steps` env steps from its reset
+    with actions ~ U(-1, 1): the robots have dropped onto their feet."""
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    state = env.initial_state(seed=seed)
+    for _ in range(steps):
+        actions = torch.rand((env.num_envs, env.num_actions), generator=gen, device=env.device) * 2 - 1
+        state, *_ = env.step(state, actions)
+    return state.sim.q, state.sim.qd, state.sim.slip_g
+
+
+def phase_sensor_kernel_vs_plain(env, fused) -> dict:
+    """B1's sensor mode on Ant at the slice's width: the four feet's wrenches
+    (revolute joints), from a settled state with random efforts."""
+    model, n = env.model, env.num_envs
+    q, qd, slip = settled_ant_state(env)
+    gen = torch.Generator(device=env.device).manual_seed(1)
+    eff = (torch.rand((n, model.nd), generator=gen, device=env.device) * 2 - 1) * env.joint_gears * env.power_scale
+    return sensor_kernel_vs_plain("B1 sensors (Ant)", fused, model, q, qd, torch.zeros_like(eff), eff, slip,
+                                  env.dt / env.substeps, env.substeps)
+
+
+def quad_sensor_model(device):
+    """tests/test_fused.py's scene: a free trunk, two revolute hips with
+    fixed feet, a prismatic slider; sensors on a hip (revolute) and on a
+    foot (fixed joint), through the port's builder."""
+    from isaacgymenv_tpu_torch.physics.builder import ModelBuilder
+    from isaacgymenv_tpu_torch.physics.meff import attach_effective_masses
+    from isaacgymenv_tpu_torch.physics.types import DRIVE_EFFORT, DRIVE_POS, JT_FIXED, JT_FREE, JT_PRISMATIC, \
+        JT_REVOLUTE
+
+    mb = ModelBuilder()
+    trunk = mb.add_body("trunk", -1, JT_FREE, mass=5.0, inertia=np.diag([0.05, 0.07, 0.09]), com=(0.01, 0.0, -0.02))
+    mb.add_geom_sphere(trunk, (0.0, 0.0, -0.05), 0.06, friction=0.9)
+    for side, y in (("l", 0.15), ("r", -0.15)):
+        hip = mb.add_body(f"hip_{side}", trunk, JT_REVOLUTE, joint_pos=(0.1, y, 0.0), joint_axis=(0, 1, 0), mass=0.8,
+                          com=(0, 0, -0.12), inertia=np.diag([0.004, 0.004, 0.001]), drive_mode=DRIVE_POS,
+                          stiffness=60.0, damping=2.0, lower=-1.2, upper=1.2, has_limit=True, effort=40.0,
+                          armature=0.01, friction=0.05, maxvel=20.0)
+        foot = mb.add_body(f"foot_{side}", hip, JT_FIXED, joint_pos=(0.0, 0.0, -0.25), mass=0.1,
+                           inertia=np.diag([1e-4] * 3))
+        mb.add_geom_sphere(foot, (0.0, 0.0, 0.0), 0.03, friction=1.1)
+    slider = mb.add_body("slider", trunk, JT_PRISMATIC, joint_pos=(-0.1, 0.0, 0.05), joint_axis=(1, 0, 0),
+                         mass=0.3, com=(0.02, 0, 0), inertia=np.diag([2e-4, 3e-4, 3e-4]), drive_mode=DRIVE_EFFORT,
+                         lower=-0.2, upper=0.2, has_limit=True, effort=15.0, armature=0.002, friction=0.02,
+                         maxvel=5.0)
+    mb.add_geom_sphere(slider, (0.05, 0.0, 0.0), 0.02, friction=0.8)
+    mb.add_force_sensor(1)  # hip_l, revolute
+    mb.add_force_sensor(2)  # foot_l, fixed
+    mb.gravity = np.array([0.0, 0.0, -9.81])
+    return attach_effective_masses(mb.finalize()).to(device)
+
+
+def phase_fixed_sensor_kernel_vs_plain(dev, fused, n: int = N_ENVS) -> dict:
+    """B1's sensor mode on the fixed-joint sensor scene, feet near the ground."""
+    model = quad_sensor_model(dev)
+    rng = np.random.default_rng(2)
+    q = np.zeros((n, model.nq), np.float32)
+    q[:, 2] = 0.25 + 0.03 * rng.random(n)
+    quat = rng.normal(size=(n, 4)) * 0.1 + [0.0, 0.0, 0.0, 1.0]
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 7:] = 0.3 * rng.normal(size=(n, model.nq - 7))
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return sensor_kernel_vs_plain(
+        "B1 sensors (fixed-joint scene)", fused, model, f(q), f(0.5 * rng.normal(size=(n, model.nv))),
+        f(0.4 * rng.normal(size=(n, model.nd))), f(5.0 * rng.normal(size=(n, model.nd))),
+        torch.zeros((n, model.ng, 3), device=dev), 0.02 / 4, 4)
 
 
 def launch_counts() -> dict:
@@ -674,6 +811,108 @@ def _diagnose(model, rec, envs, tols) -> None:
                   f"{int(obs_err.argmax())}, dofs at a limit {near.nonzero()[:, 0].tolist()}, min |depth| "
                   f"{float(depth.abs().min()):.3g} (geom {int(depth.abs().argmin())}), depths>0 "
                   f"{(depth > 0).nonzero()[:, 0].tolist()}")
+
+
+def ant_contact_state(env, n: int, seed: int):
+    """Ant q, qd (CPU tensors): the torso 0.28-0.33 m up, slightly tilted,
+    the legs spread at random, so that most envs have feet on the ground."""
+    rng = np.random.default_rng(seed)
+    m = env.model
+    q = np.zeros((n, m.nq), np.float32)
+    q[:, 2] = 0.28 + 0.05 * rng.random(n)
+    quat = rng.normal(size=(n, 4)) * 0.05 + [0.0, 0.0, 0.0, 1.0]
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 7:] = 0.3 * rng.normal(size=(n, m.nd))
+    qd = 0.3 * rng.normal(size=(n, m.nv))
+    return torch.tensor(q), torch.tensor(qd, dtype=torch.float32)
+
+
+TRAIN_EPOCHS = 10
+TRAIN_RUN = "chip_smoke_ant"
+
+
+def phase_train(card: str) -> dict:
+    """The training CLI in-process: `task=Ant` at its configured 4096 envs
+    for TRAIN_EPOCHS epochs, then a resume from the checkpoint it wrote for
+    one more.  Every logged loss and the learning rate must be finite and B1
+    launched exactly once per rollout step (horizon_length per epoch)."""
+    import math
+    import os
+
+    from isaacgymenv_tpu_torch import train
+    from isaacgymenv_tpu_torch.learning import ppo
+    from isaacgymenv_tpu_torch.utils.config import load_train_config
+
+    horizon = int(load_train_config("Ant")["params"]["config"]["horizon_length"])
+    run_dir = os.path.join("runs", TRAIN_RUN)
+    metrics_path = os.path.join(run_dir, "summaries", "metrics.csv")
+    if os.path.exists(metrics_path):
+        os.remove(metrics_path)
+    times = {"_rollout": [], "_update": []}
+    originals = {k: getattr(ppo.PPO, k) for k in times}
+
+    def timed(name):
+        def wrapper(self, *a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](self, *a, **k)
+            torch.cuda.synchronize()
+            times[name].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    args = ["task=Ant", f"num_envs={N_ENVS}", f"experiment={TRAIN_RUN}", "seed=0"]
+    for k in times:
+        setattr(ppo.PPO, k, timed(k))
+    try:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        ts = train.main(args + [f"max_iterations={TRAIN_EPOCHS}"])
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        with open(metrics_path) as f:
+            rows = [line.split(",") for line in f.read().splitlines()]
+        ckpt = os.path.join(run_dir, "nn", f"{TRAIN_RUN}.ckpt")
+        saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
+        if not all(torch.equal(saved["params"][k], v.cpu()) for k, v in ts.params.items()):
+            raise AssertionError("training: the checkpoint's parameters differ from the trained state's")
+        zero_launch_counts()
+        resumed = train.main(args + ["max_iterations=1", f"checkpoint={ckpt}"])
+        resume_launches = launch_counts()
+    finally:
+        for k, fn in originals.items():
+            setattr(ppo.PPO, k, fn)
+    want = {"fused_substep": horizon * TRAIN_EPOCHS, "split_contacts": 0, "split_dynamics": 0}
+    if launches != want:
+        raise AssertionError(f"training: kernel launches {launches} in {TRAIN_EPOCHS} epochs, expected {want}")
+    if resume_launches != {**want, "fused_substep": horizon}:
+        raise AssertionError(f"training: {resume_launches} launches in the resumed epoch, expected {horizon} of B1")
+    if ts.epoch != TRAIN_EPOCHS or resumed.epoch != TRAIN_EPOCHS + 1:
+        raise AssertionError(f"training: epochs {ts.epoch}, then {resumed.epoch} after the resume")
+    per_epoch = {}
+    for frames, name, value in rows:
+        per_epoch.setdefault(int(frames), {})[name] = float(value)
+    watched = ("loss", "a_loss", "v_loss", "entropy", "kl", "lr")
+    if len(per_epoch) != TRAIN_EPOCHS:
+        raise AssertionError(f"training: {len(per_epoch)} epochs logged, expected {TRAIN_EPOCHS}")
+    for frames, vals in per_epoch.items():
+        bad = [k for k in watched if not math.isfinite(vals.get(k, math.nan))]
+        if bad:
+            raise AssertionError(f"training: non-finite {bad} at {frames} frames")
+    for name, t in ts.params.items():
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"training: non-finite parameter {name}")
+    last = per_epoch[max(per_epoch)]
+    steps = horizon * N_ENVS * TRAIN_EPOCHS
+    result = {"epochs": TRAIN_EPOCHS, "env_steps": steps, "seconds": seconds, "env_steps_per_s": steps / seconds,
+              "rollout_ms": times["_rollout"][:TRAIN_EPOCHS], "update_ms": times["_update"][:TRAIN_EPOCHS],
+              "mean_return": last["mean_return"], "losses": {k: last[k] for k in watched}, "launches": launches}
+    print(f"training Ant at {N_ENVS} envs, {TRAIN_EPOCHS} epochs of {horizon * N_ENVS} env-steps: {seconds:.2f} s, "
+          f"{steps / seconds:.0f} env-steps/s; rollout ms per epoch {[round(t, 2) for t in result['rollout_ms']]}, "
+          f"update ms {[round(t, 2) for t in result['update_ms']]}; mean return {last['mean_return']:.4f}; last losses "
+          f"{result['losses']} (information only; {card}); B1 launches {launches['fused_substep']} "
+          f"({horizon} per epoch); resumed from the checkpoint for one epoch, {horizon} launches")
+    return result
 
 
 def cube_on_palm_state(env, n: int, seed: int):
@@ -1016,9 +1255,24 @@ def main() -> int:
         seed_state=lambda env, n: cube_on_palm_state(env, n, seed=2)[:2],
     )
 
+    # Ant: B1's sensor mode, the acting step, the env step against the CPU, training
+    env = isaacgymenv_tpu_torch.make("Ant", num_envs=N_ENVS)
+    k1s = phase_sensor_kernel_vs_plain(env, fused)
+    del env
+    k1q = phase_fixed_sensor_kernel_vs_plain(torch.device("cuda"), fused)
+    ant = phase_slice("Ant", N_ENVS, mono, card)
+    # rew: the progress term is a difference of two potentials of about 6e4
+    # (-|to_target| / dt), whose fp32 spacing is 0.0039
+    phase_slice_vs_plain("Ant", {"obs": (1e-3, 1e-2), "rew": (1e-3, 1e-2), "done": (0, 0), "q": (2e-4, 2e-4)},
+                         seed_state=lambda env, n: ant_contact_state(env, n, seed=2))
+    training = phase_train(card)
+
     kernels = [
         kernel_entry("fused_substep", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
                      "isaacgymenv_tpu/physics/fused.py:430", anymal["fused_substep"], k1, "flat (Anymal)"),
+        kernel_entry("fused_substep_sensors", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
+                     "isaacgymenv_tpu/physics/fused.py:430", ant["fused_substep"], k1s,
+                     "sensor output, flat (Ant: 4 revolute feet)"),
         kernel_entry("fused_substep_terrain", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
                      "isaacgymenv_tpu/physics/fused.py:430", terrain["fused_substep"], k1t,
                      "terrain_mode + fric_mode (AnymalTerrain)"),
@@ -1030,7 +1284,7 @@ def main() -> int:
                      "joints, drives, tendons (ShadowHand)"),
     ]
     print(json.dumps({"kernels": kernels, "split_pair": k23["pair"], "split_pair_ground": ground,
-                      "terrain_env_step": terrain_env_step}))
+                      "terrain_env_step": terrain_env_step, "sensors_fixed_joint_scene": k1q, "training": training}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -4,15 +4,17 @@
 // for the scenes that isaacgymenv_tpu_torch/physics/fused.py:fused_structural_ok
 // accepts: free roots + revolute/prismatic/fixed joints, DRIVE_* dof drives
 // with limits/friction/armature, sphere contacts against the ground with the
-// stiction slip carry, no pairs/anchors/tendons/sensors.  The ground is the
+// stiction slip carry and force sensors, no pairs/anchors/tendons.  The ground is the
 // plane z = 0, or a heightfield sampled by the caller once per control step
 // (terrain_mode: per-geom height and normal, held across the substeps as the
 // TPU kernel holds them); friction is the table's or per env (fric_mode).
 // Each thread runs all `substeps` iterations of one control step for its env:
 // FK -> ground contacts (two passes: live per-body counts, then forces) ->
 // drive/passive forces + implicit diagonal -> ABA -> velocity clamps and
-// semi-implicit integration.  The last substep's dof force and contact
-// force/torque are written out; the caller refreshes the body caches.
+// semi-implicit integration.  The last substep's dof force, contact
+// force/torque and, when the scene has force sensors, each sensor body's
+// inbound joint wrench (the ABA's joint force, as the TPU kernel's
+// sensor output) are written out; the caller refreshes the body caches.
 //
 // Unlike the Pallas kernel, which unrolls the model into code at trace time,
 // this is one fixed source: the model arrives as data (struct FusedModel,
@@ -60,6 +62,7 @@ struct EnvIO {
     float* dof_force;    // (nd, n) out
     float* contact_force;   // (nb*3, n) out
     float* contact_torque;  // (nb*3, n) out
+    float* joint_wrench; // (ns*6, n) out or null: sensor wrenches [force, torque], body frame
     float* probe;        // (substeps*2*ng, n) out or null: per substep, each geom's depth and clamp margin
 };
 
@@ -74,6 +77,7 @@ FS_HD static void fused_env(const FusedModel& M, const EnvIO& io, int e, int n,
     float share[FS_MAX_BODIES];
     float fext[FS_MAX_BODIES][6], cf[FS_MAX_BODIES][3];
     float tau[FS_MAX_DOFS], dextra[FS_MAX_DOFS];
+    float jw[FS_MAX_SENSORS * 6];
 
     for (int step = 0; step < substeps; ++step) {
         fk(M, q, qd, kin);
@@ -89,7 +93,7 @@ FS_HD static void fused_env(const FusedModel& M, const EnvIO& io, int e, int n,
         float* probe = io.probe ? io.probe + (size_t)step * 2 * M.ng * n : nullptr;
         ground_forces(M, kin, io.ground, share, io.slip, e, n, h, hh, fext, cf, probe);
         joint_forces(M, q, qd, io.pos_target, io.vel_target, io.effort, e, n, h, hh, tau, dextra);
-        aba(M, kin, tau, dextra, fext, qdd);
+        aba(M, kin, tau, dextra, fext, qdd, io.joint_wrench && step == substeps - 1 ? jw : nullptr);
         integrate(M, q, qd, qdd, h);
     }
 
@@ -101,6 +105,8 @@ FS_HD static void fused_env(const FusedModel& M, const EnvIO& io, int e, int n,
             io.contact_force[(size_t)(3 * b + k) * n + e] = cf[b][k];
             io.contact_torque[(size_t)(3 * b + k) * n + e] = fext[b][k];
         }
+    if (io.joint_wrench)
+        for (int k = 0; k < 6 * M.ns; ++k) io.joint_wrench[(size_t)k * n + e] = jw[k];
 }
 
 #ifdef __CUDACC__
@@ -111,15 +117,17 @@ __global__ void fused_substep_kernel(const FusedModel* __restrict__ model, EnvIO
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// ground_h, ground_n, geom_fric and probe may be null (mode off / not wanted).
+// ground_h, ground_n, geom_fric, joint_wrench and probe may be null (mode off
+// / not wanted); joint_wrench must be given when the model has sensors.
 extern "C" int fused_substep_launch(const void* model, float* q, float* qd,
                                     const float* pos_target, const float* vel_target,
                                     const float* effort, float* slip, const float* ground_h,
                                     const float* ground_n, const float* geom_fric, float* dof_force,
-                                    float* contact_force, float* contact_torque, float* probe,
+                                    float* contact_force, float* contact_torque, float* joint_wrench,
+                                    float* probe,
                                     int n, float h, float hh, int substeps, void* stream) {
     EnvIO io{q, qd, pos_target, vel_target, effort, slip, Ground{ground_h, ground_n, geom_fric},
-             dof_force, contact_force, contact_torque, probe};
+             dof_force, contact_force, contact_torque, joint_wrench, probe};
     const int threads = 32;  // one warp per block: spreads 4096 envs over 128 SMs
     const int blocks = (n + threads - 1) / threads;
     fused_substep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(

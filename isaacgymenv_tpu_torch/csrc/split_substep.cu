@@ -304,7 +304,7 @@ FS_HD static void dynamics_env(const SplitModel& S, const DynamicsIO& io, int e,
         const float f = -S.tendon_k[t] * viol - S.tendon_d[t] * Ld * (fabsf(viol) > 0.0f ? 1.0f : 0.0f);
         for (int j = 0; j < S.tendon_n[t]; ++j) tau[S.tendon_dof[t][j]] += f * S.tendon_coef[t][j];
     }
-    aba(M, kin, tau, dextra, fext, qdd);
+    aba(M, kin, tau, dextra, fext, qdd, nullptr);
     integrate(M, q, qd, qdd, h);
 
     for (int i = 0; i < M.nq; ++i) io.q[(size_t)i * n + e] = q[i];

@@ -26,6 +26,7 @@
 #define FS_MAX_GEOMS 256
 #define FS_MAX_Q 64
 #define FS_MAX_V 64
+#define FS_MAX_SENSORS 8   // force-sensor bodies (Ant: 4, Humanoid: 2)
 
 enum { JT_FREE = 0, JT_REVOLUTE = 1, JT_PRISMATIC = 2, JT_FIXED = 3 };
 enum { DRIVE_NONE = 0, DRIVE_POS = 1, DRIVE_VEL = 2, DRIVE_EFFORT = 3 };
@@ -33,7 +34,7 @@ enum { DRIVE_NONE = 0, DRIVE_POS = 1, DRIVE_VEL = 2, DRIVE_EFFORT = 3 };
 // Mirrored field for field by the ctypes.Structure in physics/fused.py.
 // Every member is 4 bytes wide, so the layout has no padding.
 struct FusedModel {
-    int nb, nq, nv, nd, ng;
+    int nb, nq, nv, nd, ng, ns;
     int parent[FS_MAX_BODIES];
     int jtype[FS_MAX_BODIES];
     int q_adr[FS_MAX_BODIES];
@@ -43,6 +44,7 @@ struct FusedModel {
     int dof_mode[FS_MAX_DOFS];
     int dof_haslim[FS_MAX_DOFS];
     int geom_body[FS_MAX_GEOMS];
+    int sensor_body[FS_MAX_SENSORS];  // bodies whose inbound joint carries a force sensor
     float R_tree[FS_MAX_BODIES][9];    // joint frame rotation, row-major
     float p_tree[FS_MAX_BODIES][3];
     float axis[FS_MAX_BODIES][3];
@@ -417,8 +419,11 @@ FS_HD static void joint_forces(const FusedModel& M, const float* q, const float*
 // Joint accelerations qdd (nv) from the joint forces tau (nd), the implicit
 // diagonal dextra (nd) and the world external wrenches fext (per body,
 // [moment, force] about the body origin).  Free joints only at roots.
+// wrench, null or 6 ns floats: each sensor body's inbound joint wrench
+// fj = IA a + pA (IA before the body's own joint reduction, pA with its
+// children's), body frame, written [force(3), torque(3)].
 FS_HD static void aba(const FusedModel& M, const Kin& k, const float* tau, const float* dextra,
-                      const float (*fext)[6], float* qdd) {
+                      const float (*fext)[6], float* qdd, float* wrench) {
     const int nb = M.nb;
     float IA[FS_MAX_BODIES][36], pA[FS_MAX_BODIES][6];
     float U[FS_MAX_BODIES][6], dinv[FS_MAX_BODIES], uu[FS_MAX_BODIES];
@@ -492,6 +497,25 @@ FS_HD static void aba(const FusedModel& M, const Kin& k, const float* tau, const
             const int off = (jt == JT_REVOLUTE) ? 0 : 3;
             for (int c = 0; c < 6; ++c) acc[i][c] = ap[c];
             for (int c = 0; c < 3; ++c) acc[i][off + c] += M.axis[i][c] * qi;
+        }
+    }
+
+    // force sensors.  The inward pass reduced a 1-dof body's IA in place to
+    // Ia = IA - U U^T / d, so IA a = Ia a + U (U^T a) / d; fixed and free
+    // bodies are never reduced.
+    if (!wrench) return;
+    for (int s = 0; s < M.ns; ++s) {
+        const int b = M.sensor_body[s], jt = M.jtype[b];
+        float fj[6];
+        mv6(IA[b], acc[b], fj);
+        if (jt == JT_REVOLUTE || jt == JT_PRISMATIC) {
+            float Ua = 0.0f;
+            for (int c = 0; c < 6; ++c) Ua += U[b][c] * acc[b][c];
+            for (int c = 0; c < 6; ++c) fj[c] += U[b][c] * (Ua * dinv[b]);
+        }
+        for (int c = 0; c < 3; ++c) {
+            wrench[6 * s + c] = fj[3 + c] + pA[b][3 + c];
+            wrench[6 * s + 3 + c] = fj[c] + pA[b][c];
         }
     }
 }

@@ -136,6 +136,12 @@ class TaskEnv(abc.ABC):
         state = self._reset_envs(state, torch.ones(n, dtype=torch.bool, device=self.device), draws)
         return dataclasses.replace(state, sim=engine.forward(self.model, self.terrain, state.sim))
 
+    def observations(self, state: EnvState) -> Dict[str, torch.Tensor]:
+        """The current obs without stepping (zero actions, no noise), as the
+        learner reads them at its start."""
+        actions = torch.zeros((self.num_envs, self.num_actions), device=self.device)
+        return {"obs": torch.clamp(self._observations(state, actions), -self.clip_obs, self.clip_obs)}
+
     def step(
         self, state: EnvState, actions: torch.Tensor,
         reset_draws: Optional[Dict[str, torch.Tensor]] = None,

@@ -8,7 +8,7 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Callable] = {}
 
 # (module, registry name) of the ported tasks
-_TASKS = [("anymal", "Anymal"), ("anymal_terrain", "AnymalTerrain"), ("shadow_hand", "ShadowHand")]
+_TASKS = [("anymal", "Anymal"), ("anymal_terrain", "AnymalTerrain"), ("shadow_hand", "ShadowHand"), ("ant", "Ant")]
 
 
 def register(name: str):

@@ -78,3 +78,19 @@ def with_geom_friction(model: SimModel, geom_friction) -> SimModel:
     (N, ng) per env (AnymalTerrain's friction buckets)."""
     gf = torch.tensor(np.asarray(geom_friction, np.float32), device=model.device)
     return dataclasses.replace(model, geom_friction=gf)
+
+
+def train_state_from_jax(agent, params_np: Mapping, obs_stats, value_stats, lr, seed: int = 0):
+    """A JAX `PPO` train state -> the port's `TrainState` for `agent` (a
+    `learning.ppo.PPO`): the policy (through `policy_from_jax`), both running
+    normalizers as (mean, var, count) and the learning rate, as numpy; the
+    env state, Adam's moments and the episode statistics are fresh, from
+    `agent.init(seed)`."""
+    dev = agent.device
+    params = {k: v.to(dev) for k, v in policy_from_jax(params_np).items()}
+    ts = agent.init(seed, params=params)
+    return dataclasses.replace(
+        ts, obs_stats=running_stats_from_jax(*obs_stats, device=dev),
+        value_stats=running_stats_from_jax(*value_stats, device=dev),
+        lr=torch.tensor(np.asarray(lr, np.float32), device=dev),
+    )

@@ -9,6 +9,7 @@ plain `torch` matmuls, as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -41,9 +42,43 @@ class ActorCritic(nn.Module):
             sigma_init=float(net["space"]["continuous"].get("sigma_init", 0.0)),
         )
 
+    def reference_init_(self, seed: int) -> "ActorCritic":
+        """Re-draw the weights as the JAX package's flax layers draw theirs
+        (from a torch seed, not the same numbers): LeCun-normal kernels
+        (truncated at two standard deviations) and zero biases, the mu
+        kernel orthogonal with gain 0.01, log_std at its initial value."""
+        with torch.random.fork_rng(devices=[]), torch.no_grad():
+            torch.manual_seed(seed)
+            for layer in (*self.a_dense, self.mu, self.value):
+                w = torch.empty(layer.weight.shape[::-1])  # flax's (in, out) kernel
+                if layer is self.mu:
+                    nn.init.orthogonal_(w, gain=0.01)
+                else:
+                    std = math.sqrt(1.0 / w.shape[0]) / 0.87962566103423978
+                    nn.init.trunc_normal_(w, std=std, a=-2.0 * std, b=2.0 * std)
+                layer.weight.copy_(w.t())
+                layer.bias.zero_()
+        return self
+
     def forward(self, obs: torch.Tensor):
         h = obs
         for layer in self.a_dense:
             h = self.act(layer(h))
         mu = self.mu(h)
         return mu, self.log_std.expand_as(mu), self.value(h)[..., 0]
+
+
+def gaussian_logp(mu, log_std, action):
+    """Diagonal gaussian log-density, summed over the action axis."""
+    var = torch.exp(2.0 * log_std)
+    return (-0.5 * (action - mu) ** 2 / var - log_std - 0.5 * math.log(2.0 * math.pi)).sum(-1)
+
+
+def gaussian_entropy(log_std):
+    return (log_std + 0.5 * math.log(2.0 * math.pi * math.e)).sum(-1)
+
+
+def gaussian_kl(mu0, log_std0, mu1, log_std1):
+    """KL(old || new) of diagonal gaussians (the adaptive learning rate's metric)."""
+    var0, var1 = torch.exp(2 * log_std0), torch.exp(2 * log_std1)
+    return (log_std1 - log_std0 + (var0 + (mu0 - mu1) ** 2) / (2.0 * var1) - 0.5).sum(-1)

@@ -40,4 +40,8 @@ class RunningStats:
         return RunningStats(mean=self.mean + delta * b_count / tot, var=m2 / tot, count=tot)
 
     def normalize(self, x: torch.Tensor, clip: float = 5.0) -> torch.Tensor:
+        """Standardized x, clamped to [-clip, clip] (clip=math.inf: unclamped)."""
         return torch.clamp((x - self.mean) / torch.sqrt(self.var + 1e-5), -clip, clip)
+
+    def denormalize(self, y: torch.Tensor) -> torch.Tensor:
+        return y * torch.sqrt(self.var + 1e-5) + self.mean

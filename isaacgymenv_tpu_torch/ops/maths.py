@@ -139,3 +139,42 @@ def wrap_to_pi(angles: torch.Tensor) -> torch.Tensor:
     """Wrap to (-pi, pi] (a floored remainder, as the JAX package's `%`)."""
     a = torch.remainder(angles, 2.0 * math.pi)
     return a - 2.0 * math.pi * (a > math.pi).to(a.dtype)
+
+
+def normalize_angle(x: torch.Tensor) -> torch.Tensor:
+    """Wrap an angle to [-pi, pi] through atan2."""
+    return torch.atan2(torch.sin(x), torch.cos(x))
+
+
+def get_euler_xyz(q: torch.Tensor):
+    """Quaternion -> (roll, pitch, yaw), each in [0, 2 pi) (a floored
+    remainder, as the JAX package's `%`)."""
+    qx, qy, qz, qw = q.unbind(-1)
+    roll = torch.atan2(2.0 * (qw * qx + qy * qz), qw * qw - qx * qx - qy * qy + qz * qz)
+    sinp = 2.0 * (qw * qy - qz * qx)
+    pitch = torch.where(torch.abs(sinp) >= 1.0, torch.copysign(torch.full_like(sinp, math.pi / 2.0), sinp),
+                        torch.asin(torch.clamp(sinp, -1.0, 1.0)))
+    yaw = torch.atan2(2.0 * (qw * qz + qx * qy), qw * qw + qx * qx - qy * qy - qz * qz)
+    two_pi = 2.0 * math.pi
+    return torch.remainder(roll, two_pi), torch.remainder(pitch, two_pi), torch.remainder(yaw, two_pi)
+
+
+def compute_heading_and_up(torso_rotation, inv_start_rot, to_target, vec0, vec1, up_idx: int):
+    """Heading and up projections of the torso (Ant, Humanoid):
+    (torso_quat, up_proj, heading_proj, up_vec, heading_vec)."""
+    target_dirs = normalize(to_target)
+    torso_quat = quat_mul(torso_rotation, inv_start_rot)
+    up_vec = quat_rotate(torso_quat, vec1)
+    heading_vec = quat_rotate(torso_quat, vec0)
+    return torso_quat, up_vec[..., up_idx], (heading_vec * target_dirs).sum(-1), up_vec, heading_vec
+
+
+def compute_rot(torso_quat, velocity, ang_velocity, targets, torso_positions):
+    """Body-frame velocities, roll/pitch/yaw and the angle to the target:
+    (vel_loc, angvel_loc, roll, pitch, yaw, angle_to_target)."""
+    vel_loc = quat_rotate_inverse(torso_quat, velocity)
+    angvel_loc = quat_rotate_inverse(torso_quat, ang_velocity)
+    roll, pitch, yaw = get_euler_xyz(torso_quat)
+    walk_target_angle = torch.atan2(targets[..., 2] - torso_positions[..., 2],
+                                    targets[..., 0] - torso_positions[..., 0])
+    return vel_loc, angvel_loc, roll, pitch, yaw, walk_target_angle - yaw

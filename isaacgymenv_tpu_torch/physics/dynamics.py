@@ -107,12 +107,19 @@ def aba(
     tau: torch.Tensor,
     f_ext_world: Optional[torch.Tensor] = None,
     d_extra: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_joint_forces: bool = False,
+):
     """Articulated-body algorithm: qdd (..., nv).
 
     tau: (..., nv) generalized applied force; f_ext_world: (..., nb, 6)
     world-frame [moment, force] per body about its origin; d_extra: (..., nd)
     joint-space diagonal added to the armature (implicit drive terms).
+
+    return_joint_forces: also return (..., nb, 6) the spatial force
+    transmitted through each body's inbound joint, body frame, rows [n, f]:
+    fj_i = IA_i a_i + pA_i with IA_i the articulated inertia before its own
+    joint's reduction and pA_i with the children's contributions (the
+    force-sensor reading, as JAX's `aba_lp(..., return_joint_forces=True)`).
     """
     batch = tau.shape[:-1]
     inertias = body_spatial_inertias(model, tau.dtype)
@@ -181,4 +188,7 @@ def aba(
             qdd_i = (u[i] - (U[i] * a_p).sum(-1)) * dinv[i]
             qdd[..., va] = qdd_i
             a[i] = a_p + S * qdd_i[..., None]
+    if return_joint_forces:
+        fj = [spatial.mv(IA[i], a[i]) + pA[i] for i in range(nb)]
+        return qdd, torch.stack(fj, dim=-2)
     return qdd

@@ -197,48 +197,59 @@ def _contacts(model: SimModel, terrain, kin, slip_g, slip_p, h: float):
 def _dynamics(model: SimModel, kin, q, qd, ctrl: Control, f_ext, h: float):
     """Joint forces -> ABA with f_ext -> integration, at the poses of `kin`.
 
-    Returns (q_new, qd_new, dof_force)."""
+    Returns (q_new, qd_new, dof_force, joint_wrench): joint_wrench (N, ns, 6)
+    is the force-sensor reading of each `model.sensor_body`, the wrench its
+    inbound joint transmits, [force(3), torque(3)] in the body frame (the
+    layout of the reference's force sensors); None without sensors."""
     vi = list(model.dof_v_adr)
     dof_p, dof_v = q[..., list(model.dof_q_adr)], qd[..., vi]
     tau_dof = actuation_force(model, dof_p, dof_v, ctrl) + passive_force(model, dof_p, dof_v)
     tau = torch.zeros_like(qd)
     tau[..., vi] = tau_dof
     d_imp = _implicit_drive_terms(model, h, dof_p)
-    qdd = dynamics.aba(model, kin, tau, f_ext, d_extra=d_imp)
+    joint_wrench = None
+    if model.sensor_body:
+        qdd, fj = dynamics.aba(model, kin, tau, f_ext, d_extra=d_imp, return_joint_forces=True)
+        fj = fj[..., list(model.sensor_body), :]  # rows [n, f]
+        joint_wrench = torch.cat([fj[..., 3:], fj[..., :3]], dim=-1)
+    else:
+        qdd = dynamics.aba(model, kin, tau, f_ext, d_extra=d_imp)
 
     qd_new = qd + qdd * h
     qd_new[..., vi] = torch.clamp(qd_new[..., vi], -model.dof_maxvel, model.dof_maxvel)
     qd_new = _clamp_root_vel(model, qd_new)
-    return _integrate(model, q, qd_new, h), qd_new, tau_dof
+    return _integrate(model, q, qd_new, h), qd_new, tau_dof, joint_wrench
 
 
 def _substep(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip_p, h: float):
     """One substep on raw arrays.
 
-    Returns (q_new, qd_new, dof_force, contact_force, contact_torque, slip_g, slip_p).
+    Returns (q_new, qd_new, dof_force, contact_force, contact_torque, slip_g,
+    slip_p, joint_wrench); joint_wrench is None without sensors.
     """
     kin = kinematics.fk(model, q, qd)
     f_ext, body_cf, slip_g, slip_p = _contacts(model, terrain, kin, slip_g, slip_p, h)
-    q_new, qd_new, tau_dof = _dynamics(model, kin, q, qd, ctrl, f_ext, h)
-    # contact and dof forces are those of the last substep (PhysX CC_LAST_SUBSTEP)
-    return q_new, qd_new, tau_dof, body_cf, f_ext[..., :3], slip_g, slip_p
+    q_new, qd_new, tau_dof, joint_wrench = _dynamics(model, kin, q, qd, ctrl, f_ext, h)
+    # contact, dof and sensor forces are those of the last substep (PhysX CC_LAST_SUBSTEP)
+    return q_new, qd_new, tau_dof, body_cf, f_ext[..., :3], slip_g, slip_p, joint_wrench
 
 
 def _substeps_plain(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip_p, h: float, substeps: int):
     """`substeps` x `_substep`: the plain version of the substep kernels."""
     for _ in range(substeps):
-        q, qd, dof_force, cf, ct, slip_g, slip_p = _substep(model, terrain, q, qd, ctrl, slip_g, slip_p, h)
-    return q, qd, dof_force, cf, ct, slip_g, slip_p
+        q, qd, dof_force, cf, ct, slip_g, slip_p, jw = _substep(model, terrain, q, qd, ctrl, slip_g, slip_p, h)
+    return q, qd, dof_force, cf, ct, slip_g, slip_p, jw
 
 
 def _check_supported(model: SimModel, terrain, ctrl: Control, kind: Optional[str], device_type: str) -> None:
     """Raise on a scene that no path of the port runs as the JAX package does.
 
-    Heightfield terrain and per-env friction (`geom_friction` (N, ng)) run on
-    B1 on the card and in the plain loop on the CPU.  On the card a scene
-    that does not go to B1 (`kind` "split", or None: over the kernels' caps,
-    or per-env leaves B1 does not take) raises instead of quietly running
-    the plain loop there."""
+    Heightfield terrain, per-env friction (`geom_friction` (N, ng)) and force
+    sensors run on B1 on the card and in the plain loop on the CPU.  On the
+    card a scene that does not go to B1 (`kind` "split", or None: over the
+    kernels' caps, or per-env leaves B1 does not take) raises instead of
+    quietly running the plain loop there.  The split pair has no sensor
+    output on either device."""
     per_env_friction = model.geom_friction.ndim == 2
     off_b1 = device_type != "cpu" and kind != "mono"
     unsupported = {
@@ -250,7 +261,8 @@ def _check_supported(model: SimModel, terrain, ctrl: Control, kind: Optional[str
         "SDF colliders": model.n_sdf,
         "world anchors": model.anchor_body,
         "gravity compensation": model.body_gravcomp is not None,
-        "force sensors": model.sensor_body,
+        "force sensors off B1": off_b1 and model.sensor_body,
+        "force sensors on the split pair": kind == "split" and model.sensor_body,
         "body wrenches": ctrl.body_wrench is not None,
     }
     missing = [k for k, v in unsupported.items() if v]
@@ -292,6 +304,10 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
     plain version has neither mode."""
     kind = _use_fused(model, state.q)
     _check_supported(model, terrain, ctrl, kind, state.q.device.type)
+    if model.sensor_body and state.joint_wrench is None:
+        # a state made before the model declared its sensors
+        state = dataclasses.replace(state, joint_wrench=torch.zeros(
+            state.q.shape[:-1] + (len(model.sensor_body), 6), dtype=state.q.dtype, device=state.q.device))
     if state.q.device.type == "cpu" and (terrain is not None or kind == "split" and model.geom_friction.ndim == 2):
         kind = None
     h = dt / substeps
@@ -309,7 +325,7 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
         if terrain is not None:
             held = contact_mod.held_ground(model, terrain, state.body_pos, state.body_quat)
             modes.update(ground_h=held.height, ground_n=held.normal)
-        q, qd, dof_force, cf, ct, slip_g = fused_mod.fused_substep(
+        q, qd, dof_force, cf, ct, slip_g, jw = fused_mod.fused_substep(
             fused_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, h, substeps, **modes
         )
     elif kind == "split":
@@ -318,12 +334,13 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
         q, qd, dof_force, cf, ct, slip_g, slip_p = split_mod.split_substep(
             split_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, slip_p, h, substeps
         )
+        jw = None
     else:
-        q, qd, dof_force, cf, ct, slip_g, slip_p = _substeps_plain(
+        q, qd, dof_force, cf, ct, slip_g, slip_p, jw = _substeps_plain(
             model, terrain, state.q, state.qd, ctrl, slip_g, slip_p, h, substeps
         )
     state = dataclasses.replace(
-        state, q=q, qd=qd, dof_force=dof_force, contact_force=cf, contact_torque=ct,
+        state, q=q, qd=qd, dof_force=dof_force, contact_force=cf, contact_torque=ct, joint_wrench=jw,
         slip_g=slip_g if model.ng else None, slip_p=slip_p if model.n_pairs else None,
     )
     return forward(model, terrain, state)

@@ -47,7 +47,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # compile-time caps of csrc/substep_common.cuh (FS_MAX_*)
-MAX_BODIES, MAX_DOFS, MAX_GEOMS, MAX_Q, MAX_V = 32, 32, 256, 64, 64
+MAX_BODIES, MAX_DOFS, MAX_GEOMS, MAX_Q, MAX_V, MAX_SENSORS = 32, 32, 256, 64, 64, 8
 
 
 class FusedModel(ctypes.Structure):
@@ -55,7 +55,7 @@ class FusedModel(ctypes.Structure):
 
     _fields_ = [
         ("nb", ctypes.c_int), ("nq", ctypes.c_int), ("nv", ctypes.c_int),
-        ("nd", ctypes.c_int), ("ng", ctypes.c_int),
+        ("nd", ctypes.c_int), ("ng", ctypes.c_int), ("ns", ctypes.c_int),
         ("parent", ctypes.c_int * MAX_BODIES),
         ("jtype", ctypes.c_int * MAX_BODIES),
         ("q_adr", ctypes.c_int * MAX_BODIES),
@@ -65,6 +65,7 @@ class FusedModel(ctypes.Structure):
         ("dof_mode", ctypes.c_int * MAX_DOFS),
         ("dof_haslim", ctypes.c_int * MAX_DOFS),
         ("geom_body", ctypes.c_int * MAX_GEOMS),
+        ("sensor_body", ctypes.c_int * MAX_SENSORS),
         ("R_tree", ctypes.c_float * (MAX_BODIES * 9)),
         ("p_tree", ctypes.c_float * (MAX_BODIES * 3)),
         ("axis", ctypes.c_float * (MAX_BODIES * 3)),
@@ -93,8 +94,9 @@ def fused_structural_ok(model: SimModel, num_envs: int) -> bool:
     """True when the scene's joints, sizes and leaves fit the kernel; anything
     else takes the plain path.  The one per-env leaf the kernel takes is
     `geom_friction` (num_envs, ng) (`fric_mode`); every other model leaf must
-    be shared by all envs.  Features neither path has yet (pairs with
-    per-env friction, sensors, ...) are refused before this by
+    be shared by all envs.  Force sensors are an output of the kernel, up to
+    MAX_SENSORS bodies.  Features neither path has yet (pairs with per-env
+    friction, anchors, ...) are refused before this by
     `engine._check_supported`."""
     if num_envs < 1:
         return False
@@ -113,7 +115,7 @@ def fused_structural_ok(model: SimModel, num_envs: int) -> bool:
     if model.geom_friction.ndim == 2 and tuple(model.geom_friction.shape) != (num_envs, model.ng):
         return False
     return (0 < model.nd <= MAX_DOFS and model.nb <= MAX_BODIES and model.ng <= MAX_GEOMS
-            and model.nq <= MAX_Q and model.nv <= MAX_V)
+            and model.nq <= MAX_Q and model.nv <= MAX_V and len(model.sensor_body) <= MAX_SENSORS)
 
 
 def _spatial_inertia64(mass, com, inertia_com) -> np.ndarray:
@@ -143,6 +145,7 @@ def pack_model(model: SimModel) -> FusedModel:
     c = lambda t: t.detach().cpu().numpy()  # noqa: E731
     m = FusedModel()
     m.nb, m.nq, m.nv, m.nd, m.ng = model.nb, model.nq, model.nv, model.nd, model.ng
+    m.ns = len(model.sensor_body)
     body_dof = [-1] * model.nb
     for d, b in enumerate(model.dof_body):
         body_dof[b] = d
@@ -150,7 +153,7 @@ def pack_model(model: SimModel) -> FusedModel:
         ("parent", model.parent), ("jtype", model.jtype), ("q_adr", model.q_adr),
         ("v_adr", model.v_adr), ("body_dof", body_dof), ("dof_body", model.dof_body),
         ("dof_mode", c(model.dof_drive_mode)), ("dof_haslim", c(model.dof_has_limit)),
-        ("geom_body", model.geom_body),
+        ("geom_body", model.geom_body), ("sensor_body", model.sensor_body),
     ):
         getattr(m, name)[: len(vals)] = [int(v) for v in vals]
     mass, com, inert = c(model.body_mass), c(model.body_com), c(model.body_inertia)
@@ -243,13 +246,16 @@ def fused_substep_plain(tables: FusedTables, q, qd, pos_target, vel_target, effo
     held across the substeps (None: the plane z = 0), and `geom_fric` (N, ng)
     is the per-env friction (None: the model's `geom_friction`).
 
-    Returns (q, qd, dof_force, contact_force, contact_torque, slip_g)."""
+    Returns (q, qd, dof_force, contact_force, contact_torque, slip_g,
+    joint_wrench): joint_wrench (N, ns, 6) is that of the last substep, None
+    when the model has no force sensors (`sensor_body`)."""
     model = tables.model
     if geom_fric is not None:
         model = dataclasses.replace(model, geom_friction=geom_fric)
     terrain = None if ground_h is None else contact.HeldGround(ground_h, ground_n)
     ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
-    return engine._substeps_plain(model, terrain, q, qd, ctrl, slip_g, None, h, substeps)[:6]
+    out = engine._substeps_plain(model, terrain, q, qd, ctrl, slip_g, None, h, substeps)
+    return out[:6] + (out[7],)
 
 
 def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_substep") -> None:
@@ -263,8 +269,9 @@ def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_substep"
 def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float, substeps: int,
                   ground_h=None, ground_n=None, geom_fric=None, probe=None):
     """All `substeps` substeps of one control step; same outputs as
-    `fused_substep_plain`.  A CUDA `q` launches the kernel; a CPU `q` runs the
-    plain version.
+    `fused_substep_plain` (the sensor wrenches, None without sensors: the
+    kernel writes them from the last substep's ABA).  A CUDA
+    `q` launches the kernel; a CPU `q` runs the plain version.
 
     `ground_h`/`ground_n` (terrain_mode) and `geom_fric` (fric_mode) are the
     kernel's optional inputs, as `fused_substep_plain` reads them.  `probe`,
@@ -304,11 +311,13 @@ def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, sl
     cf = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
     ct = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
     probeT = None if probe is None else torch.empty((substeps * 2 * model.ng, n), dtype=torch.float32, device=dev)
+    ns = len(model.sensor_body)
+    jwT = torch.empty((ns * 6, n), dtype=torch.float32, device=dev) if ns else None
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.fused_substep_launch(
             ptr(tables.table), ptr(qT), ptr(qdT), ptr(tgtT), ptr(vtgT), ptr(effT),
-            ptr(slipT), ptr(ghT), ptr(gnT), ptr(gfT), ptr(dof_force), ptr(cf), ptr(ct), ptr(probeT),
+            ptr(slipT), ptr(ghT), ptr(gnT), ptr(gfT), ptr(dof_force), ptr(cf), ptr(ct), ptr(jwT), ptr(probeT),
             n, float(h), float(h * h), int(substeps), stream(dev),
         )
     if err != 0:
@@ -323,6 +332,7 @@ def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, sl
         from_minor(cf, n, model.nb, 3),
         from_minor(ct, n, model.nb, 3),
         from_minor(slipT, n, model.ng, 3),
+        None if jwT is None else from_minor(jwT, n, ns, 6),
     )
 
 
@@ -364,7 +374,7 @@ def build_library(source: str = SOURCE) -> tuple[str, float, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library()[0])
     fn = lib.fused_substep_launch
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
                                              ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

@@ -149,7 +149,7 @@ def split_substep_plain(tables: SplitTables, q, qd, pos_target, vel_target, effo
 
     Returns (q, qd, dof_force, contact_force, contact_torque, slip_g, slip_p)."""
     ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
-    return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, slip_p, h, substeps)
+    return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, slip_p, h, substeps)[:7]
 
 
 def contacts_plain(tables: SplitTables, q, qd, slip_g, slip_p, h: float):
@@ -163,7 +163,7 @@ def dynamics_plain(tables: SplitTables, q, qd, pos_target, vel_target, effort, f
     """B3's plain version: (q, qd, dof_force)."""
     model = tables.model
     ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
-    return engine._dynamics(model, kinematics.fk(model, q, qd), q, qd, ctrl, f_ext, h)
+    return engine._dynamics(model, kinematics.fk(model, q, qd), q, qd, ctrl, f_ext, h)[:3]
 
 
 # ------------------------------------------------------------ the kernels

@@ -16,12 +16,35 @@ import yaml
 CFG_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "cfg")
 
 
+def _parse_value(v: str) -> Any:
+    """A CLI value as YAML reads it; "3e-4" (a string to YAML 1.1) as a float."""
+    try:
+        out = yaml.safe_load(v)
+    except yaml.YAMLError:
+        return v
+    if isinstance(out, str):
+        try:
+            return float(out)
+        except ValueError:
+            return out
+    return out
+
+
 def set_dotted(cfg: Dict, dotted: str, value: Any) -> None:
     keys = dotted.split(".")
     d = cfg
     for k in keys[:-1]:
         d = d.setdefault(k, {})
     d[keys[-1]] = value
+
+
+def get_dotted(cfg: Dict, dotted: str, default=None):
+    d = cfg
+    for k in dotted.split("."):
+        if not isinstance(d, dict) or k not in d:
+            return default
+        d = d[k]
+    return d
 
 
 def deep_update(base: Dict, override: Dict) -> Dict:
@@ -79,6 +102,16 @@ def load_train_config(task: str, name: Optional[str] = None) -> Dict:
     name = name or f"{task}PPO"
     path = os.path.join(CFG_ROOT, "train", f"{name}.yaml")
     return load_yaml(path)
+
+
+def apply_cli_overrides(cfg: Dict, argv) -> Dict:
+    """hydra-style `key.path=value` overrides (`+`/`++` prefixes tolerated)."""
+    for arg in argv:
+        if "=" not in arg:
+            continue
+        k, v = arg.split("=", 1)
+        set_dotted(cfg, k.lstrip("+"), _parse_value(v))
+    return cfg
 
 
 def asset_root() -> str:

@@ -3,10 +3,10 @@
     python3 scripts/profile_torch_slice.py
 
 For each ported slice (Anymal at 4096 envs, AnymalTerrain at 4096 on the
-full trimesh grid, ShadowHand at 16384, the widths chip_smoke.py drives),
-runs the chip_smoke.py acting step (normalize obs -> ActorCritic -> sample
-actions -> env.step) for N_STEPS timed steps and reports, with the card's
-name and power limit:
+full trimesh grid, ShadowHand at 16384, Ant at 4096, the widths
+chip_smoke.py drives), runs the chip_smoke.py acting step (normalize obs ->
+ActorCritic -> sample actions -> env.step) for N_STEPS timed steps and
+reports, with the card's name and power limit:
 1. synchronized phase times: every phase ends in torch.cuda.synchronize(),
    inclusive host wall ms per acting step of the policy, `env.step`,
    `engine.step` (kernels + FK refresh) and `engine.forward` (FK refresh;
@@ -15,6 +15,11 @@ name and power limit:
 2. a torch.profiler window without synchronization: wall ms per step,
    device-busy ms per step (sum of kernel times), the idle share, CUDA
    kernel launches per step, and the kernels with the most device time.
+Then the training epoch of Ant at 4096 envs (`learning/ppo.py`, the
+configured horizon of 16 steps, 2 minibatches x 4 mini-epochs), after one
+warm-up epoch: synchronized ms per epoch of the rollout, GAE and update
+over TRAIN_EPOCHS epochs, and a profiler window over one epoch (device
+busy, idle share, kernel launches).
 The last line is one JSON object with the same numbers per slice.
 """
 
@@ -33,8 +38,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # (task, envs, make() overrides), as chip_smoke.py
 SLICES = (("Anymal", 4096, {}), ("AnymalTerrain", 4096, {"env.terrain.terrainType": "trimesh"}),
-          ("ShadowHand", 16384, {}))
+          ("ShadowHand", 16384, {}), ("Ant", 4096, {}))
 N_STEPS = 20
+TRAIN_EPOCHS = 5
 
 
 def profile(task: str, n_envs: int, overrides: dict) -> dict:
@@ -90,37 +96,85 @@ def profile(task: str, n_envs: int, overrides: dict) -> dict:
         print(f"{task} synchronized {k}: {v:.3f} ms per acting step ({calls[k] / N_STEPS:g} calls per step)")
 
     # ---- 2. profiler window, no synchronization inside
+    def window():
+        for _ in range(N_STEPS):
+            box["state"], obs_dict, *_r = env.step(box["state"], act(box["obs"]))
+            box["obs"] = obs_dict["obs"]
+
+    box.update(state=state, obs=obs)
+    with torch.no_grad():
+        trace = profiler_window(window, N_STEPS, task, "step")
+    return {"envs": n_envs, "steps": N_STEPS, "synchronized_ms": phases,
+            "calls_per_step": {k: v / N_STEPS for k, v in calls.items()}, **trace}
+
+
+def profiler_window(fn, count: int, label: str, unit: str) -> dict:
+    """fn() under torch.profiler, no synchronization inside: wall ms, device
+    busy ms (the sum of kernel times), idle share and kernel launches, per
+    `count` units."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(N_STEPS):
-            state, obs_dict, *_r = env.step(state, act(obs))
-            obs = obs_dict["obs"]
+        fn()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / N_STEPS
+        wall_ms = 1e3 * (time.perf_counter() - t0) / count
     # (name, microseconds) per kernel run: device events where the profiler
     # lists them, else the kernels it attaches to their launching CPU events
     events = prof.events()
     kernels = [(e.name, e.device_time_total) for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         kernels = [(k.name, k.duration) for e in events for k in e.kernels]
-    busy_ms = sum(us for _, us in kernels) / 1e3 / N_STEPS
+    busy_ms = sum(us for _, us in kernels) / 1e3 / count
     by_name = collections.Counter()
     for name, us in kernels:
-        by_name[name] += us / 1e3 / N_STEPS
-    top = [{"kernel": n[:80], "ms_per_step": round(v, 4)} for n, v in by_name.most_common(8)]
-    print(f"{task} profiler: wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
-          f"idle share {1 - busy_ms / wall_ms:.3f}, {len(kernels) / N_STEPS:.0f} kernel launches/step")
+        by_name[name] += us / 1e3 / count
+    top = [{"kernel": n[:80], f"ms_per_{unit}": round(v, 4)} for n, v in by_name.most_common(8)]
+    print(f"{label} profiler: wall {wall_ms:.3f} ms/{unit}, device busy {busy_ms:.3f} ms/{unit}, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}, {len(kernels) / count:.0f} kernel launches/{unit}")
     for t in top:
-        print(f"  {t['ms_per_step']:.4f} ms/step  {t['kernel']}")
-    return {
-        "envs": n_envs, "steps": N_STEPS, "synchronized_ms": phases,
-        "calls_per_step": {k: v / N_STEPS for k, v in calls.items()},
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-        "launches_per_step": len(kernels) / N_STEPS, "top_kernels": top,
-    }
+        print(f"  {t[f'ms_per_{unit}']:.4f} ms/{unit}  {t['kernel']}")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+            f"launches_per_{unit}": len(kernels) / count, "top_kernels": top}
+
+
+def profile_training(task: str = "Ant", n_envs: int = 4096) -> dict:
+    """The PPO epoch's split: synchronized rollout, GAE and update ms per
+    epoch over TRAIN_EPOCHS epochs after one warm-up, then one profiled epoch."""
+    import isaacgymenv_tpu_torch
+    from isaacgymenv_tpu_torch.learning.ppo import PPO
+    from isaacgymenv_tpu_torch.utils.config import load_train_config
+
+    agent = PPO(isaacgymenv_tpu_torch.make(task, num_envs=n_envs), load_train_config(task))
+    box = {"ts": agent.init(0)}
+    box["ts"], _ = agent.train_epoch(box["ts"])  # warm-up
+    totals = collections.defaultdict(list)
+
+    def timed(name, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        totals[name].append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    for _ in range(TRAIN_EPOCHS):
+        ts, batch, _m = timed("rollout", agent._rollout, box["ts"])
+        advs, returns = timed("gae", agent._gae, ts, batch)
+        box["ts"], _i = timed("update", agent._update, ts, batch, advs, returns)
+    steps = agent.cfg.horizon_length * n_envs
+    mean = {k: sum(v) / len(v) for k, v in totals.items()}
+    print(f"{task} training at {n_envs} envs, {steps} env-steps per epoch: synchronized ms per epoch "
+          + ", ".join(f"{k} {v:.3f}" for k, v in mean.items())
+          + f"; {steps / (sum(mean.values()) / 1e3):.0f} env-steps/s")
+
+    def epoch():
+        box["ts"], _i = agent.train_epoch(box["ts"])
+
+    trace = profiler_window(epoch, 1, f"{task} training", "epoch")
+    return {"envs": n_envs, "env_steps_per_epoch": steps, "epochs": TRAIN_EPOCHS,
+            "synchronized_ms_per_epoch": mean, "synchronized_ms_all": dict(totals), **trace}
 
 
 def main() -> int:
@@ -135,6 +189,7 @@ def main() -> int:
     for task, n_envs, overrides in SLICES:
         out[task] = profile(task, n_envs, overrides)
         torch.cuda.empty_cache()
+    out["Ant training"] = profile_training()
     print(card)
     print(json.dumps(out))
     return 0

@@ -3,7 +3,10 @@
 The one port test file that builds the JAX Anymal model (once, in a
 module-scoped fixture).  The JAX side runs its XLA path (`engine.step` on
 the CPU backend), which tests/test_fused.py in turn holds the Pallas kernel
-against; the port runs the fused kernel's plain version.  Random draws are
+against, compiled once as one substep chained (tests/jax_reference.py); the
+JAX env step is compiled with that chain in place of its physics and with
+the reset draws it makes from its state's key.  The port runs the fused
+kernel's plain version.  Random draws are
 made with numpy or, for resets, by repeating the JAX package's key splits
 here, and handed to both packages.
 
@@ -38,6 +41,8 @@ from isaacgymenv_tpu.physics import engine as jax_engine  # noqa: E402
 from isaacgymenv_tpu.physics import kinematics as jax_kinematics  # noqa: E402
 from isaacgymenv_tpu.physics.types import make_zero_state as jax_zero_state  # noqa: E402
 from isaacgymenv_tpu.utils.config import load_task_config as jax_task_config  # noqa: E402
+from tests.jax_reference import compiled as _jax_compiled  # noqa: E402
+from tests.jax_reference import env_step, substep_chain  # noqa: E402
 
 import isaacgymenv_tpu_torch  # noqa: E402
 from isaacgymenv_tpu_torch import interop  # noqa: E402
@@ -55,11 +60,11 @@ def envs():
     )
 
 
-def _jax_compiled(fn, *args):
-    """fn jitted and compiled for args at XLA backend optimization level 0:
-    it halves the reference's compile time on the CPU and leaves its fp32
-    arithmetic to the same XLA program."""
-    return jax.jit(fn).lower(*args).compile(compiler_options={"xla_backend_optimization_level": 0})
+@pytest.fixture(scope="module")
+def jax_physics(envs):
+    """The JAX engine.step of Anymal, one compiled substep chained."""
+    jm = envs[0].model
+    return substep_chain(jm, None, jax_zero_state(jm, N), jax_engine.Control.zero(jm, N))
 
 
 def _close(got, want, rtol, atol, what=""):
@@ -134,13 +139,13 @@ def test_aba_matches_jax(envs):
 
 
 @pytest.mark.parametrize("substeps", [1, 4])
-def test_engine_step_matches_jax_xla_path(envs, substeps):
+def test_engine_step_matches_jax_xla_path(envs, jax_physics, substeps):
     jax_env, port_env = envs
     q, qd, tgt = _seeded_state(jax_env, 4 + substeps)
     jm, tm = jax_env.model, port_env.model
     js0 = jax_zero_state(jm, N).replace(q=jnp.asarray(q), qd=jnp.asarray(qd))
     jctrl = jax_engine.Control.zero(jm, N).replace(pos_target=jnp.asarray(tgt))
-    ref = _jax_compiled(lambda s, c: jax_engine.step(jm, None, s, c, 0.02, substeps), js0, jctrl)(js0, jctrl)
+    ref = jax_physics(js0, jctrl, 0.02, substeps)
 
     ts0 = dataclasses.replace(types.make_zero_state(tm, N), q=torch.tensor(q), qd=torch.tensor(qd))
     tctrl = dataclasses.replace(engine.Control.zero(tm, N), pos_target=torch.tensor(tgt))
@@ -170,15 +175,16 @@ def _jax_reset_draws(key, env):
         "vel": jax.random.uniform(k_vel, (n, nd), minval=-0.1, maxval=0.1),
         "commands": jnp.stack(cmd, axis=-1),
     }
-    return {k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
+    return draws
 
 
-def test_env_steps_match_jax_with_injected_draws(envs):
+def test_env_steps_match_jax_with_injected_draws(envs, jax_physics):
     jax_env, port_env = envs
     key = jax.random.PRNGKey(5)
     # initial_state: key, k_ts, k_reset, k_dr = split(key, 4)  (envs/base.py)
     jstate = _jax_compiled(jax_env.initial_state, key)(key)
-    tinit = port_env.initial_state(reset_draws=_jax_reset_draws(jax.random.split(key, 4)[2], jax_env))
+    tinit = port_env.initial_state(reset_draws={
+        k: torch.tensor(np.asarray(v)) for k, v in _jax_reset_draws(jax.random.split(key, 4)[2], jax_env).items()})
     for field in ("q", "qd", "body_pos", "body_quat", "body_linvel"):
         _close(getattr(tinit.sim, field), getattr(jstate.sim, field), 1e-5, 1e-5, f"initial {field}")
     _close(tinit.ts["commands"], jstate.ts["commands"], 0, 0, "initial commands")
@@ -192,15 +198,16 @@ def test_env_steps_match_jax_with_injected_draws(envs):
     }, device="cpu")
 
     rng = np.random.default_rng(6)
-    jstep = _jax_compiled(jax_env.step, jstate, jnp.zeros((N, 12)))
+    # step: key, k_reset, k_noise = split(state.rng, 3)  (envs/base.py)
+    jstep = env_step(lambda st, a: (jax_env.step(st, a), _jax_reset_draws(jax.random.split(st.rng, 3)[1], jax_env)),
+                     jax_physics, jstate, jnp.zeros((N, 12)))
     any_reset = False
     for i in range(5):
         actions = rng.uniform(-1.0, 1.0, size=(N, 12)).astype(np.float32)
-        # step: key, k_reset, k_noise = split(state.rng, 3)  (envs/base.py)
-        draws = _jax_reset_draws(jax.random.split(jstate.rng, 3)[1], jax_env)
         any_reset |= bool(np.asarray(jstate.reset).any())
-        jstate, jobs, jrew, jdone, jextras = jstep(jstate, jnp.asarray(actions))
-        tstate, tobs, trew, tdone, textras = port_env.step(tstate, torch.tensor(actions), reset_draws=draws)
+        (jstate, jobs, jrew, jdone, jextras), draws = jstep(jstate, jnp.asarray(actions))
+        tstate, tobs, trew, tdone, textras = port_env.step(
+            tstate, torch.tensor(actions), reset_draws={k: torch.tensor(np.asarray(v)) for k, v in draws.items()})
         _close(tobs["obs"], jobs["obs"], 2e-3, 5e-3, f"obs, step {i}")
         _close(trew, jrew, 1e-3, 1e-4, f"rew, step {i}")
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone), f"done, step {i}")
@@ -218,11 +225,16 @@ def test_acting_step_with_carried_weights(envs):
     batch = (rng.normal(size=(64, 48)) * 3.0 + 1.0).astype(np.float32)
 
     net = JaxActorCritic(num_actions=12, units=(256, 128, 64), activation="elu")
-    params = net.init(jax.random.PRNGKey(9), jnp.zeros((1, 48)))
-    params = jax.tree_util.tree_map(np.asarray, jax.device_get(params))
+    # the network's parameter tree, filled from the numpy seed
+    shapes = jax.eval_shape(net.init, jax.random.PRNGKey(9), jnp.zeros((1, 48)))
+    params = jax.tree_util.tree_map(lambda a: (0.1 * rng.normal(size=a.shape)).astype(np.float32), shapes)
     params["params"]["log_std"] = (0.3 * rng.normal(size=12)).astype(np.float32)
-    jstats = JaxRunningStats.create((48,)).update(jnp.asarray(batch))
-    jmu, jlog_std, jvalue = net.apply(params, jstats.normalize(jnp.asarray(obs)))
+
+    def forward(p, b, o):
+        stats = JaxRunningStats.create((48,)).update(b)
+        return stats, net.apply(p, stats.normalize(o))
+
+    jstats, (jmu, jlog_std, jvalue) = jax.jit(forward)(params, jnp.asarray(batch), jnp.asarray(obs))
 
     policy = ActorCritic(48, 12, units=(256, 128, 64), activation="elu")
     policy.load_state_dict(interop.policy_from_jax(params))

@@ -46,6 +46,7 @@ from isaacgymenv_tpu.physics import engine as jax_engine  # noqa: E402
 from isaacgymenv_tpu.physics import types as jax_types  # noqa: E402
 from isaacgymenv_tpu.utils import terrain as jax_terrain  # noqa: E402
 from isaacgymenv_tpu.utils.config import load_task_config as jax_task_config  # noqa: E402
+from tests.jax_reference import env_step, substep_chain  # noqa: E402
 
 import isaacgymenv_tpu_torch  # noqa: E402
 from isaacgymenv_tpu_torch import interop  # noqa: E402
@@ -87,11 +88,6 @@ def envs():
     return jax_env, port_env
 
 
-def _jax_compiled(fn, *args):
-    """fn jitted and compiled at XLA backend optimization level 0."""
-    return jax.jit(fn).lower(*args).compile(compiler_options={"xla_backend_optimization_level": 0})
-
-
 def _terrain_state(env, seed):
     """q, qd, pos_target: every env on the top level, 1.8-3 m off its
     sub-terrain's center (past the flat spawn platform), near the standing
@@ -115,29 +111,31 @@ def _terrain_state(env, seed):
 
 
 @pytest.fixture(scope="module")
-def jax_step(envs):
-    """substeps -> (q, qd, pos_target, the JAX XLA path after one control
-    step) from the seeded terrain state of seed 4 + substeps.  One compiled
-    one-substep `engine.step` with dt an argument serves every count: the XLA
-    path scans that substep `substeps` times at dt / substeps, carrying the
-    slip, and its final `forward` refreshes only the body caches, which
-    the next call does not read.  The JAX env's model carries the per-env
+def jax_physics(envs):
+    """The JAX engine.step on the heightfield, one compiled substep chained
+    (tests/jax_reference.py).  The JAX env's model carries the per-env
     friction."""
-    jax_env, port_env = envs
+    jax_env, _ = envs
     jm = jax_env.model
     # zero slip: the carry of the XLA path's scan, as engine.step starts it
     js0 = jax_types.make_zero_state(jm, N).replace(slip_g=jnp.zeros((N, jm.ng, 3)))
-    jctrl = jax_engine.Control.zero(jm, N)
-    step = _jax_compiled(lambda s, c, dt: jax_engine.step(jm, jax_env.terrain, s, c, dt, 1), js0, jctrl, 0.0)
+    return substep_chain(jm, jax_env.terrain, js0, jax_engine.Control.zero(jm, N))
+
+
+@pytest.fixture(scope="module")
+def jax_step(envs, jax_physics):
+    """substeps -> (q, qd, pos_target, the JAX XLA path after one control
+    step) from the seeded terrain state of seed 4 + substeps."""
+    jax_env, port_env = envs
+    jm = jax_env.model
 
     @functools.lru_cache(maxsize=None)
     def run(substeps):
         q, qd, tgt = _terrain_state(port_env, 4 + substeps)
-        js = js0.replace(q=jnp.asarray(q), qd=jnp.asarray(qd))
-        c = jctrl.replace(pos_target=jnp.asarray(tgt))
-        for _ in range(substeps):
-            js = step(js, c, jax_env.dt / substeps)
-        return q, qd, tgt, jax.device_get(js)
+        js = jax_types.make_zero_state(jm, N).replace(q=jnp.asarray(q), qd=jnp.asarray(qd),
+                                                       slip_g=jnp.zeros((N, jm.ng, 3)))
+        c = jax_engine.Control.zero(jm, N).replace(pos_target=jnp.asarray(tgt))
+        return q, qd, tgt, jax.device_get(jax_physics(js, c, jax_env.dt, substeps))
 
     return run
 
@@ -210,7 +208,8 @@ def test_held_ground_plain_version_matches_jax_at_one_substep(envs, jax_step):
     before = fused.fused_substep.launches
     wrapped = fused.fused_substep(*args, **kw)  # a CPU state: the plain version, no launch
     assert fused.fused_substep.launches == before
-    assert all(torch.equal(a, b) for a, b in zip(out, wrapped))
+    assert out[6] is None and wrapped[6] is None  # no force sensors
+    assert all(torch.equal(a, b) for a, b in zip(out[:6], wrapped[:6]))
     got = {"q": out[0], "qd": out[1], "dof_force": out[2], "contact_force": out[3], "slip_g": out[5]}
     for field, rtol, atol in STEP_TOLS:
         if field in got:
@@ -239,7 +238,7 @@ def _jax_draws(rng, env):
     return reset, step
 
 
-def test_env_steps_match_jax_with_injected_draws(envs):
+def test_env_steps_match_jax_with_injected_draws(envs, jax_physics):
     jax_env, port_env = envs
     jm = jax_env.model
     # the port's initial state with injected levels, 6 of 8 envs on the top
@@ -267,8 +266,10 @@ def test_env_steps_match_jax_with_injected_draws(envs):
     )
 
     rng = np.random.default_rng(6)
-    # one compile: the step and the draws it makes from the state's key
-    jstep = _jax_compiled(lambda st, a: (jax_env.step(st, a), _jax_draws(st.rng, jax_env)), jstate, jnp.zeros((N, 12)))
+    # one compile: the step (its physics the compiled substep chain) and the
+    # draws it makes from the state's key
+    jstep = env_step(lambda st, a: (jax_env.step(st, a), _jax_draws(st.rng, jax_env)), jax_physics,
+                     jstate, jnp.zeros((N, 12)))
     torch_of = lambda d: {k: torch.tensor(np.asarray(v)) for k, v in d.items()}  # noqa: E731
     seen = {"reset": False, "move": False, "push": False, "contact": False}
     for i in range(5):

@@ -54,7 +54,7 @@ def test_make_without_device_needs_cuda():
 
 @pytest.mark.parametrize("kind,name", [
     ("task", "Anymal"), ("train", "AnymalPPO"), ("task", "ShadowHand"), ("train", "ShadowHandPPO"),
-    ("task", "AnymalTerrain"), ("train", "AnymalTerrainPPO"),
+    ("task", "AnymalTerrain"), ("train", "AnymalTerrainPPO"), ("task", "Ant"), ("train", "AntPPO"),
 ])
 def test_cfg_copy_parses_like_the_jax_package(kind, name):
     ours = port_config.load_yaml(os.path.join(port_config.CFG_ROOT, kind, f"{name}.yaml"))
@@ -88,10 +88,15 @@ def test_fused_gate(anymal_cpu):
     for m, terrain, c in [
         (model, object(), ctrl),
         (model, None, dataclasses.replace(ctrl, body_wrench=torch.zeros(anymal_cpu.num_envs, model.nb, 6))),
-        (dataclasses.replace(model, sensor_body=(1,)), None, ctrl),
+        (dataclasses.replace(model, anchor_body=(1,)), None, ctrl),
     ]:
         with pytest.raises(NotImplementedError, match="not ported"):
             engine.step(m, terrain, sim, c, 0.005, 2)
+    # force sensors go to B1 (its sensor output); a CPU state runs the plain loop
+    sensed = dataclasses.replace(model, sensor_body=(1,))
+    assert fused.fused_structural_ok(sensed, 4096) and engine._use_fused(sensed, sim.q) == "mono"
+    out = engine.step(sensed, None, sim, ctrl, 0.005, 1)
+    assert tuple(out.joint_wrench.shape) == (anymal_cpu.num_envs, 1, 6)
 
 
 def test_pack_model_table(anymal_cpu):
@@ -123,7 +128,8 @@ def test_wrapper_runs_plain_version_on_cpu(anymal_cpu):
     out = fused.fused_substep(tables, q, qd, tgt, zero, zero, slip, 0.005, 2)
     ref = fused.fused_substep_plain(tables, q, qd, tgt, zero, zero, slip, 0.005, 2)
     assert fused.fused_substep.launches == before  # no kernel ran
-    for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert out[6] is None and ref[6] is None  # no force sensors
+    for a, b in zip(out[:6], ref[:6]):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unsupported device"):
         fused.fused_substep(tables, q.to("meta"), qd, tgt, zero, zero, slip, 0.005, 2)

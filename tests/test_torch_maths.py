@@ -1,5 +1,6 @@
 """The port's quaternion helpers (ops/maths.py) and spatial algebra
-(physics/spatial.py) against the JAX package's, on numpy-seeded inputs.
+(physics/spatial.py) against the JAX package's, on numpy-seeded inputs;
+a helper with several outputs is held to each.
 
 Tolerance: fp32 elementwise formulas written the same way in both packages;
 1e-5 absolute on unit-scale outputs (5e-5 for rotmat_to_quat, whose
@@ -52,6 +53,11 @@ MATHS = {
     "quat_from_angle_axis": (lambda r: ((3.0 * r.normal(size=N)).astype(np.float32), _vec(r)), 1e-5),
     "scale": (lambda r: (_vec(r), -1.0 - r.random(3).astype(np.float32), 1.0 + r.random(3).astype(np.float32)), 1e-5),
     "unscale": (lambda r: (_vec(r), -1.0 - r.random(3).astype(np.float32), 1.0 + r.random(3).astype(np.float32)), 1e-5),
+    # Ant's observation helpers (tuples of outputs)
+    "normalize_angle": (lambda r: ((3.0 * r.normal(size=N)).astype(np.float32),), 1e-5),
+    "get_euler_xyz": (lambda r: (_quat(r),), 1e-5),
+    "compute_heading_and_up": (lambda r: (_quat(r), _quat(r), _vec(r, 5.0), _vec(r), _vec(r), 2), 1e-5),
+    "compute_rot": (lambda r: (_quat(r), _vec(r), _vec(r), _vec(r, 100.0), _vec(r)), 1e-5),
 }
 
 SPATIAL = {
@@ -70,10 +76,14 @@ SPATIAL = {
 
 
 def _compare(jfn, tfn, args, tol):
-    want = np.asarray(jfn(*[jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args]))
-    got = tfn(*[torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in args]).numpy()
-    assert got.shape == want.shape
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    want = jfn(*[jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args])
+    got = tfn(*[torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in args])
+    want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("name", sorted(MATHS))

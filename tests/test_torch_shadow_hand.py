@@ -1,9 +1,11 @@
 """The port's ShadowHand slice against the JAX package on the CPU, N = 8 envs.
 
-The JAX ShadowHand is built once, in a module-scoped fixture; its step
-functions are compiled at XLA optimization level 0 and run the XLA path
-(`engine.step` on the CPU backend), which tests/test_fused_split.py holds the
-Pallas split pair against.  The port runs its split kernels' plain version
+The JAX ShadowHand is built once, in a module-scoped fixture; its physics
+runs the XLA path (`engine.step` on the CPU backend), which
+tests/test_fused_split.py holds the Pallas split pair against, compiled at
+XLA optimization level 0 once, as one substep chained (tests/jax_reference.py);
+the JAX env step is compiled with that chain in place of its physics and
+with the draws it makes from its state's key.  The port runs its split kernels' plain version
 (`split_substep_plain`, the `engine._substep` loop).  States are seeded with
 numpy, with the cube resting on the palm so that pair contacts are active;
 reset and goal draws repeat the JAX package's key splits and are handed to
@@ -41,6 +43,7 @@ from isaacgymenv_tpu.physics import contact as jax_contact  # noqa: E402
 from isaacgymenv_tpu.physics import engine as jax_engine  # noqa: E402
 from isaacgymenv_tpu.physics.types import make_zero_state as jax_zero_state  # noqa: E402
 from isaacgymenv_tpu.utils.config import load_task_config as jax_task_config  # noqa: E402
+from tests.jax_reference import env_step, substep_chain  # noqa: E402
 
 import isaacgymenv_tpu_torch  # noqa: E402
 from isaacgymenv_tpu_torch import interop  # noqa: E402
@@ -59,9 +62,11 @@ def envs():
     )
 
 
-def _jax_compiled(fn, *args):
-    """fn jitted and compiled for args at XLA backend optimization level 0."""
-    return jax.jit(fn).lower(*args).compile(compiler_options={"xla_backend_optimization_level": 0})
+@pytest.fixture(scope="module")
+def jax_physics(envs):
+    """The JAX engine.step of the hand scene, one compiled substep chained."""
+    jm = envs[0].model
+    return substep_chain(jm, None, jax_zero_state(jm, N), jax_engine.Control.zero(jm, N))
 
 
 def _close(got, want, rtol, atol, what=""):
@@ -120,13 +125,16 @@ def test_model_matches_jax_field_by_field(envs):
     assert port_env.actuated == [int(d) for d in jax_env.actuated]
 
 
+_jax_surface_closest = jax.jit(jax_contact._surface_closest)  # one compile serves the four kinds
+
+
 @pytest.mark.parametrize("kind", [0, 1, 2, 3])
 def test_surface_closest_matches_jax(kind):
     rng = np.random.default_rng(20 + kind)
     size = np.tile((0.02 + 0.03 * rng.random(3)).astype(np.float32), (64, 1))
     local = (rng.uniform(-2.0, 2.0, size=(N, 64, 3)) * size).astype(np.float32)
     kinds = np.full(64, kind, np.int32)
-    jn, jd = jax_contact._surface_closest(jnp.asarray(kinds), jnp.asarray(local), jnp.asarray(size))
+    jn, jd = _jax_surface_closest(jnp.asarray(kinds), jnp.asarray(local), jnp.asarray(size))
     tn, td = contact._surface_closest(torch.tensor(kinds), torch.tensor(local), torch.tensor(size))
     assert (np.asarray(jd) < 0).any() and (np.asarray(jd) > 0).any(), "points inside and outside"
     _close(tn, jn, 1e-5, 1e-6, "normal")
@@ -143,7 +151,7 @@ def test_passive_force_with_violated_tendons(envs):
     length = (pos[:, td] * tc).sum(-1)
     lo, hi = m.tendon_range.numpy().T
     assert ((length < lo) | (length > hi)).mean() > 0.5, "most tendons violated"
-    want = jax_engine.passive_force(jax_env.model, jnp.asarray(pos), jnp.asarray(vel))
+    want = jax.jit(lambda p, v: jax_engine.passive_force(jax_env.model, p, v))(jnp.asarray(pos), jnp.asarray(vel))
     got = engine.passive_force(m, torch.tensor(pos), torch.tensor(vel))
     _close(got, want, 1e-5, 1e-4)
 
@@ -173,14 +181,14 @@ def test_pair_table_rows_come_from_the_model(envs):
     assert (pint[88:, fused_split.PI_GB] == port_env.object_body).all()
 
 
-def test_engine_step_matches_jax_xla_path(envs):
+def test_engine_step_matches_jax_xla_path(envs, jax_physics):
     jax_env, port_env = envs
     q, qd, tgt, slip = _cube_on_palm(port_env, 4)
     jm, tm = jax_env.model, port_env.model
     js0 = jax_zero_state(jm, N).replace(q=jnp.asarray(q), qd=jnp.asarray(qd), slip_p=jnp.asarray(slip))
     jctrl = jax_engine.Control.zero(jm, N).replace(pos_target=jnp.asarray(tgt))
     dt = jax_env.dt
-    ref = _jax_compiled(lambda s, c: jax_engine.step(jm, None, s, c, dt, 2), js0, jctrl)(js0, jctrl)
+    ref = jax_physics(js0, jctrl, dt, 2)
 
     ts0 = dataclasses.replace(
         types.make_zero_state(tm, N), q=torch.tensor(q), qd=torch.tensor(qd), slip_p=torch.tensor(slip)
@@ -218,10 +226,10 @@ def _jax_reset_draws(key, env):
         "dof_vel": jax.random.uniform(k_dvel, (n, nd), minval=-1.0, maxval=1.0),
         "force_prob": jax.random.uniform(k_fp, (n,)),
     }
-    return {k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
+    return draws
 
 
-def test_env_steps_match_jax_with_injected_draws(envs):
+def test_env_steps_match_jax_with_injected_draws(envs, jax_physics):
     jax_env, port_env = envs
     q, qd, _, _ = _cube_on_palm(port_env, 5)
     qd[:] = 0.0
@@ -250,18 +258,22 @@ def test_env_steps_match_jax_with_injected_draws(envs):
     act = port_env.actuated
     lo, hi = m.dof_lower[act].numpy(), m.dof_upper[act].numpy()
     hold = (2.0 * q[:, list(m.dof_q_adr)][:, act] - hi - lo) / (hi - lo)
-    jstep = _jax_compiled(jax_env.step, jstate, jnp.zeros((N, 20)))
+    def step_and_draws(st, a):
+        # _make_control: fold_in(state.rng, 41); step: key, k_reset, k_noise = split(state.rng, 3)
+        goal = _jax_random_quat_draws(jax.random.fold_in(st.rng, 41), N)
+        return jax_env.step(st, a), goal, _jax_reset_draws(jax.random.split(st.rng, 3)[1], jax_env)
+
+    jstep = env_step(step_and_draws, jax_physics, jstate, jnp.zeros((N, 20)))
+    torch_of = lambda d: {k: torch.tensor(np.asarray(v)) for k, v in d.items()}  # noqa: E731
     goal_resets, resets = [], []
     for i in range(3):
         actions = np.clip(hold + rng.uniform(-0.1, 0.1, size=(N, 20)), -1.0, 1.0).astype(np.float32)
-        # _make_control: fold_in(state.rng, 41); step: key, k_reset, k_noise = split(state.rng, 3)
-        step_draws = {"goal": torch.tensor(np.asarray(_jax_random_quat_draws(jax.random.fold_in(jstate.rng, 41), N)))}
-        reset_draws = _jax_reset_draws(jax.random.split(jstate.rng, 3)[1], jax_env)
         resets.append(np.asarray(jstate.reset).copy())
         goal_resets.append(np.asarray(jstate.ts["reset_goal"]).copy())
-        jstate, jobs, jrew, jdone, jextras = jstep(jstate, jnp.asarray(actions))
+        (jstate, jobs, jrew, jdone, jextras), goal, reset_draws = jstep(jstate, jnp.asarray(actions))
         tstate, tobs, trew, tdone, textras = port_env.step(
-            tstate, torch.tensor(actions), reset_draws=reset_draws, step_draws=step_draws
+            tstate, torch.tensor(actions), reset_draws=torch_of(reset_draws),
+            step_draws={"goal": torch.tensor(np.asarray(goal))},
         )
         _close(tobs["obs"], jobs["obs"], 2e-3, 5e-3, f"obs, step {i}")
         _close(trew, jrew, 1e-3, 1e-3, f"rew, step {i}")
@@ -281,10 +293,11 @@ def test_policy_forward_with_carried_weights():
     assert units == (512, 512, 256, 128)
     obs = (rng.normal(size=(N, 211)) * 2.0).astype(np.float32)
     net = JaxActorCritic(num_actions=20, units=units, activation="elu")
-    params = net.init(jax.random.PRNGKey(9), jnp.zeros((1, 211)))
-    params = jax.tree_util.tree_map(np.asarray, jax.device_get(params))
+    # the network's parameter tree, filled from the numpy seed
+    shapes = jax.eval_shape(net.init, jax.random.PRNGKey(9), jnp.zeros((1, 211)))
+    params = jax.tree_util.tree_map(lambda a: (0.05 * rng.normal(size=a.shape)).astype(np.float32), shapes)
     params["params"]["log_std"] = (0.3 * rng.normal(size=20)).astype(np.float32)
-    jmu, jlog_std, jvalue = net.apply(params, jnp.asarray(obs))
+    jmu, jlog_std, jvalue = jax.jit(net.apply)(params, jnp.asarray(obs))
 
     policy = ActorCritic(211, 20, units=units, activation="elu")
     policy.load_state_dict(interop.policy_from_jax(params))
@@ -335,7 +348,7 @@ def test_split_wrapper_runs_plain_version_on_cpu(envs):
     ref = fused_split.split_substep_plain(tables, *args)
     assert (fused_split.launch_contacts.launches, fused_split.launch_dynamics.launches) == before
     for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_split.split_substep(tables, q.to("meta"), *args[1:])
     with pytest.raises(ValueError, match="needs CUDA"):
