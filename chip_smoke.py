@@ -49,6 +49,20 @@ Phases (each raises on failure; the script then exits non-zero):
    acting steps with the [512, 512, 256, 128] policy; launch counts (each
    split kernel twice per step, no B1); then 2 steps at 128 envs from the
    resting state held against the CPU plain path;
+8b. the ShadowHandOpenAI_FF slice (openai obs of 42, states of 211, random
+   object forces): B2 in its wrench mode + B3 against the plain version at
+   16384 envs as phase 7, every env carrying a body wrench (the task's
+   object force, small wrenches on the hand's moving bodies, 3 N and 1 N m
+   on the two welded root bodies), with the count witness; B2's own outputs
+   held to its contract, f_ext = the contacts' wrench + the body wrench in
+   each of the 162 entries and no wrench in the contact torque; 100 acting steps with the [400, 400, 200, 100] policy (each
+   split kernel twice per step); the env step on the card against the CPU
+   at 128 envs with the same draws (obs, states, reward, done, q, the
+   object force; at least one env's force fired); then the training CLI
+   (`task=ShadowHandOpenAI_FF`, 16384 envs, HAND_TRAIN_EPOCHS epochs and a
+   resumed one, the central value on the states): finite actor and central
+   value losses, 16 launches of each split kernel per epoch (horizon 8),
+   the checkpoint's central value equal to the trained one;
 9. the Ant slice: B1's force-sensor output against `fused_substep_plain` at
    4096 Ant envs (the four feet, revolute) from a state settled onto the
    feet, and on tests/test_fused.py's scene (a fixed-joint sensor body) at
@@ -61,7 +75,7 @@ Phases (each raises on failure; the script then exits non-zero):
    horizon_length times per epoch; rollout and update times, env-steps/s
    and the mean return as information;
 10. the `kernels` JSON line (B1 once per mode set: flat, terrain + friction,
-   sensors; B2; B3), the card line, and the final ok line.
+   sensors; B2 and B2 in wrench mode; B3), the card line, and the final ok line.
 """
 
 from __future__ import annotations
@@ -201,15 +215,31 @@ PAIR_QUERY_FLOPS = 2 * MV3 + 3 + MM3 + 3 + 3 + MV3 + MV3 + 1   # c, R_s, p_s, d,
 PAIR_FORCE_FLOPS = 170                                            # lever .. accumulation
 
 
-def split_contacts_flops(model, n: int) -> int:
+def split_contacts_flops(model, n: int, wrench: bool = False) -> int:
     """fp32 operations that one launch of B2 (split_contacts_kernel) performs:
     FK, the ground passes unless `no_ground`, and two surface queries plus one
-    force evaluation per pair (box queries counted on their outside branch)."""
+    force evaluation per pair (box queries counted on their outside branch);
+    in wrench mode one add per body wrench entry (6 per body)."""
     st = _stage_flops(model)
     pairs = sum(2 * (PAIR_QUERY_FLOPS + CLOSEST_FLOPS[model.surf_kind[s]]) + 3 + PAIR_FORCE_FLOPS
                 for s in model.pair_surf)
     ground = model.nb * 2 if model.no_ground else st["ground"]
-    return (st["fk"] + ground + pairs) * n
+    return (st["fk"] + ground + pairs + (6 * model.nb if wrench else 0)) * n
+
+
+def split_contacts_bytes(tables, n: int, wrench: bool = False) -> int:
+    """Bytes one launch of B2 must move: its tables, q and qd in, the slips
+    in and out, f_ext, contact force and torque out; in wrench mode the body
+    wrenches (6 per body) in."""
+    model = tables.model
+    table_bytes = tables.table.numel() + 4 * (tables.pint.numel() + tables.pflt.numel())
+    return table_bytes + 4 * n * (
+        model.nq + model.nv                    # q, qd in
+        + 6 * model.n_pairs                    # slip_p in and out
+        + (0 if model.no_ground else 6 * model.ng)
+        + 12 * model.nb                        # f_ext, contact force and torque out
+        + (6 * model.nb if wrench else 0)      # body wrenches in
+    )
 
 
 def split_dynamics_flops(model, n: int) -> int:
@@ -588,13 +618,21 @@ def phase_slice(task: str, n_envs: int, expected: dict, card: str, overrides=Non
         raise AssertionError(f"{task}: kernel launches {launches} in {N_STEPS} acting steps, expected {want}")
     if tuple(obs.shape) != (n_envs, env.num_obs):
         raise AssertionError(f"{task}: obs shape {tuple(obs.shape)}")
-    for label, t in (("obs", obs), ("rew", rew), ("mu", mu), ("value", value),
-                     ("q", state.sim.q), ("qd", state.sim.qd), ("contact_force", state.sim.contact_force)):
+    checked = [("obs", obs), ("rew", rew), ("mu", mu), ("value", value),
+               ("q", state.sim.q), ("qd", state.sim.qd), ("contact_force", state.sim.contact_force)]
+    if env.num_states:
+        if tuple(obs_dict["states"].shape) != (n_envs, env.num_states):
+            raise AssertionError(f"{task}: states shape {tuple(obs_dict['states'].shape)}")
+        checked.append(("states", obs_dict["states"]))
+    for label, t in checked:
         if not torch.isfinite(t).all():
             raise AssertionError(f"{task}: non-finite {label} after {N_STEPS} acting steps")
+    forces = ""
+    if "rb_force" in state.ts:  # ShadowHand's random object forces
+        forces = f"; envs with an object force {int((state.ts['rb_force'] != 0).any(-1).sum())}"
     print(f"slice {task}: {N_STEPS} acting steps at {n_envs} envs in {seconds:.3f} s = "
           f"{N_STEPS * n_envs / seconds:.0f} env-steps/s (information only; {card}); "
-          f"kernel launches {launches}; done this step {int(done.sum())}; mean reward {float(rew.mean()):.5f}")
+          f"kernel launches {launches}; done this step {int(done.sum())}; mean reward {float(rew.mean()):.5f}{forces}")
     return launches
 
 
@@ -625,7 +663,16 @@ def phase_slice_vs_plain(task: str, tols: dict, n: int = 128, steps: int = 2, se
             )
         outs[d] = {"obs": obs["obs"].cpu(), "rew": rew.cpu(), "done": done.cpu(), "q": state.sim.q.cpu(),
                    "contact_force": state.sim.contact_force.cpu()}
+        if "states" in obs:
+            outs[d]["states"] = obs["states"].cpu()
+        if "rb_force" in state.ts:
+            outs[d]["rb_force"] = state.ts["rb_force"].cpu()
     contact = int((outs["cpu"]["contact_force"].abs().sum(-1) > 0).any(-1).sum())
+    if "rb_force" in tols:
+        forced = int((outs["cpu"]["rb_force"] != 0).any(-1).sum())
+        print(f"{task} env.step cuda vs cpu: {forced} of {n} envs carry an object force after {steps} steps")
+        if forced == 0:
+            raise AssertionError(f"{task}: no object force fired; the wrench path is not exercised")
     for label, (rtol, atol) in tols.items():
         a, b = outs["cuda"][label].float(), outs["cpu"][label].float()
         err = float((a - b).abs().max())
@@ -827,15 +874,18 @@ def ant_contact_state(env, n: int, seed: int):
     return torch.tensor(q), torch.tensor(qd, dtype=torch.float32)
 
 
-TRAIN_EPOCHS = 10
-TRAIN_RUN = "chip_smoke_ant"
+TRAIN_EPOCHS = 10       # Ant
+HAND_TRAIN_EPOCHS = 3   # ShadowHandOpenAI_FF
 
 
-def phase_train(card: str) -> dict:
-    """The training CLI in-process: `task=Ant` at its configured 4096 envs
-    for TRAIN_EPOCHS epochs, then a resume from the checkpoint it wrote for
-    one more.  Every logged loss and the learning rate must be finite and B1
-    launched exactly once per rollout step (horizon_length per epoch)."""
+def phase_train(card: str, task: str = "Ant", n_envs: int = N_ENVS, epochs: int = TRAIN_EPOCHS,
+                per_step=None) -> dict:
+    """The training CLI in-process: `task=<task>` at `n_envs` envs for `epochs`
+    epochs, then a resume from the checkpoint it wrote for one more.  Every
+    logged loss (with a central value, `v_loss` is its loss) and the learning
+    rate must be finite, the kernels launched exactly `per_step` times per
+    rollout step (horizon_length steps per epoch), and the checkpoint's
+    parameters (and central value) equal to the trained state's."""
     import math
     import os
 
@@ -843,8 +893,10 @@ def phase_train(card: str) -> dict:
     from isaacgymenv_tpu_torch.learning import ppo
     from isaacgymenv_tpu_torch.utils.config import load_train_config
 
-    horizon = int(load_train_config("Ant")["params"]["config"]["horizon_length"])
-    run_dir = os.path.join("runs", TRAIN_RUN)
+    per_step = per_step or {"fused_substep": 1, "split_contacts": 0, "split_dynamics": 0}
+    horizon = int(load_train_config(task)["params"]["config"]["horizon_length"])
+    run = f"chip_smoke_{task.lower()}"
+    run_dir = os.path.join("runs", run)
     metrics_path = os.path.join(run_dir, "summaries", "metrics.csv")
     if os.path.exists(metrics_path):
         os.remove(metrics_path)
@@ -861,57 +913,64 @@ def phase_train(card: str) -> dict:
             return out
         return wrapper
 
-    args = ["task=Ant", f"num_envs={N_ENVS}", f"experiment={TRAIN_RUN}", "seed=0"]
+    args = [f"task={task}", f"num_envs={n_envs}", f"experiment={run}", "seed=0"]
     for k in times:
         setattr(ppo.PPO, k, timed(k))
     try:
         zero_launch_counts()
         t0 = time.perf_counter()
-        ts = train.main(args + [f"max_iterations={TRAIN_EPOCHS}"])
+        ts = train.main(args + [f"max_iterations={epochs}"])
         seconds = time.perf_counter() - t0
         launches = launch_counts()
         with open(metrics_path) as f:
             rows = [line.split(",") for line in f.read().splitlines()]
-        ckpt = os.path.join(run_dir, "nn", f"{TRAIN_RUN}.ckpt")
+        ckpt = os.path.join(run_dir, "nn", f"{run}.ckpt")
         saved = torch.load(ckpt, map_location="cpu", weights_only=True)["state"]
-        if not all(torch.equal(saved["params"][k], v.cpu()) for k, v in ts.params.items()):
-            raise AssertionError("training: the checkpoint's parameters differ from the trained state's")
+        pairs = [("policy", saved["params"], ts.params)]
+        if ts.cv is not None:
+            pairs.append(("central value", saved["cv"]["params"], ts.cv.params))
+        for what, kept, trained in pairs:
+            if not all(torch.equal(kept[k], v.cpu()) for k, v in trained.items()):
+                raise AssertionError(f"training {task}: the checkpoint's {what} differ from the trained state's")
         zero_launch_counts()
         resumed = train.main(args + ["max_iterations=1", f"checkpoint={ckpt}"])
         resume_launches = launch_counts()
     finally:
         for k, fn in originals.items():
             setattr(ppo.PPO, k, fn)
-    want = {"fused_substep": horizon * TRAIN_EPOCHS, "split_contacts": 0, "split_dynamics": 0}
+    want = {k: v * horizon * epochs for k, v in per_step.items()}
     if launches != want:
-        raise AssertionError(f"training: kernel launches {launches} in {TRAIN_EPOCHS} epochs, expected {want}")
-    if resume_launches != {**want, "fused_substep": horizon}:
-        raise AssertionError(f"training: {resume_launches} launches in the resumed epoch, expected {horizon} of B1")
-    if ts.epoch != TRAIN_EPOCHS or resumed.epoch != TRAIN_EPOCHS + 1:
-        raise AssertionError(f"training: epochs {ts.epoch}, then {resumed.epoch} after the resume")
+        raise AssertionError(f"training {task}: kernel launches {launches} in {epochs} epochs, expected {want}")
+    if resume_launches != {k: v * horizon for k, v in per_step.items()}:
+        raise AssertionError(f"training {task}: {resume_launches} launches in the resumed epoch")
+    if ts.epoch != epochs or resumed.epoch != epochs + 1:
+        raise AssertionError(f"training {task}: epochs {ts.epoch}, then {resumed.epoch} after the resume")
     per_epoch = {}
     for frames, name, value in rows:
         per_epoch.setdefault(int(frames), {})[name] = float(value)
     watched = ("loss", "a_loss", "v_loss", "entropy", "kl", "lr")
-    if len(per_epoch) != TRAIN_EPOCHS:
-        raise AssertionError(f"training: {len(per_epoch)} epochs logged, expected {TRAIN_EPOCHS}")
+    if len(per_epoch) != epochs:
+        raise AssertionError(f"training {task}: {len(per_epoch)} epochs logged, expected {epochs}")
     for frames, vals in per_epoch.items():
         bad = [k for k in watched if not math.isfinite(vals.get(k, math.nan))]
         if bad:
-            raise AssertionError(f"training: non-finite {bad} at {frames} frames")
-    for name, t in ts.params.items():
+            raise AssertionError(f"training {task}: non-finite {bad} at {frames} frames")
+    for name, t in {**ts.params, **(ts.cv.params if ts.cv is not None else {})}.items():
         if not torch.isfinite(t).all():
-            raise AssertionError(f"training: non-finite parameter {name}")
+            raise AssertionError(f"training {task}: non-finite parameter {name}")
     last = per_epoch[max(per_epoch)]
-    steps = horizon * N_ENVS * TRAIN_EPOCHS
-    result = {"epochs": TRAIN_EPOCHS, "env_steps": steps, "seconds": seconds, "env_steps_per_s": steps / seconds,
-              "rollout_ms": times["_rollout"][:TRAIN_EPOCHS], "update_ms": times["_update"][:TRAIN_EPOCHS],
-              "mean_return": last["mean_return"], "losses": {k: last[k] for k in watched}, "launches": launches}
-    print(f"training Ant at {N_ENVS} envs, {TRAIN_EPOCHS} epochs of {horizon * N_ENVS} env-steps: {seconds:.2f} s, "
+    steps = horizon * n_envs * epochs
+    result = {"task": task, "envs": n_envs, "epochs": epochs, "env_steps": steps, "seconds": seconds,
+              "env_steps_per_s": steps / seconds, "rollout_ms": times["_rollout"][:epochs],
+              "update_ms": times["_update"][:epochs], "mean_return": last["mean_return"],
+              "losses": {k: last[k] for k in watched}, "launches": launches,
+              "central_value": ts.cv is not None}
+    print(f"training {task} at {n_envs} envs, {epochs} epochs of {horizon * n_envs} env-steps: {seconds:.2f} s, "
           f"{steps / seconds:.0f} env-steps/s; rollout ms per epoch {[round(t, 2) for t in result['rollout_ms']]}, "
           f"update ms {[round(t, 2) for t in result['update_ms']]}; mean return {last['mean_return']:.4f}; last losses "
-          f"{result['losses']} (information only; {card}); B1 launches {launches['fused_substep']} "
-          f"({horizon} per epoch); resumed from the checkpoint for one epoch, {horizon} launches")
+          f"{result['losses']} (information only; {card}); kernel launches {launches} ({per_step} per step, "
+          f"{horizon} steps per epoch); central value {result['central_value']}; resumed from the checkpoint for "
+          f"one epoch, {resume_launches}")
     return result
 
 
@@ -1001,10 +1060,11 @@ def counts_plain(model, q, qd) -> torch.Tensor:
     return contact.body_active_counts(model, act_g, act_p, geom_pos.shape[:-2], device=q.device)
 
 
-def contacts_kernel(tables, q, qd, slip_g, slip_p, h):
-    """One launch of B2 alone on env-major inputs (left untouched):
-    (f_ext, contact_force, contact_torque, slip_g, slip_p, counts), env-major,
-    counts (N, nb) being the kernel's own live contacts per body (at least 1)."""
+def contacts_kernel(tables, q, qd, slip_g, slip_p, h, body_wrench=None):
+    """One launch of B2 alone on env-major inputs (left untouched), in its
+    wrench mode when `body_wrench` (N, nb, 6) is given: (f_ext,
+    contact_force, contact_torque, slip_g, slip_p, counts), env-major, counts
+    (N, nb) being the kernel's own live contacts per body (at least 1)."""
     from isaacgymenv_tpu_torch.physics import fused_split
     from isaacgymenv_tpu_torch.physics.fused import from_minor, to_minor
 
@@ -1014,7 +1074,8 @@ def contacts_kernel(tables, q, qd, slip_g, slip_p, h):
     s_pT = to_minor(slip_p, n) if model.n_pairs else None
     empty = lambda k: torch.empty((k, n), device=dev)  # noqa: E731
     fext, cf, ct, counts = empty(6 * model.nb), empty(3 * model.nb), empty(3 * model.nb), empty(model.nb)
-    fused_split.launch_contacts(tables, to_minor(q, n), to_minor(qd, n), s_gT, s_pT, fext, cf, ct, h, counts)
+    bwT = None if body_wrench is None else to_minor(body_wrench, n)
+    fused_split.launch_contacts(tables, to_minor(q, n), to_minor(qd, n), s_gT, s_pT, fext, cf, ct, h, counts, bwT)
     return (from_minor(fext, n, model.nb, 6), from_minor(cf, n, model.nb, 3), from_minor(ct, n, model.nb, 3),
             from_minor(s_gT, n, model.ng, 3) if ground else slip_g,
             from_minor(s_pT, n, model.n_pairs, 3) if model.n_pairs else slip_p,
@@ -1035,9 +1096,67 @@ def _check_flips(label: str, flips: torch.Tensor, at_threshold: torch.Tensor) ->
                              f"version's without a pair within {THRESHOLD_EPS} m of its threshold")
 
 
-def phase_split_vs_plain(env) -> dict:
+def task_wrench(env, q, seed: int):
+    """(N, nb, 6) world [moment, force] body wrenches in every env: on the
+    cube the force of ShadowHandOpenAI_FF's random forces (N(0, 1) x mass x
+    forceScale in the cube's frame, rotated by its pose into the world) and a
+    N(0, 2e-3) N m moment; N(0, 1e-2) N and N(0, 1e-3) N m on the hand's
+    moving bodies; 3 N and 1 N m of random sign on the two fixed bodies at
+    the root, welded to the world, where they move nothing and where a
+    wrench that leaked into the contact torque would show at 20x the
+    tolerance.  `check_wrench_mode` holds each of the 162 entries."""
+    from isaacgymenv_tpu_torch.ops import maths
+    from isaacgymenv_tpu_torch.physics import engine, types
+
+    n, model, dev = q.shape[0], env.model, q.device
+    if not (model.body_names[0] == "robot0:hand mount" and model.jtype[0] == model.jtype[1] == types.JT_FIXED):
+        raise AssertionError("ShadowHand's first two bodies are not the fixed root")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = lambda m, f: torch.tensor([m] * 3 + [f] * 3, device=dev)  # noqa: E731
+    w = torch.randn((n, model.nb, 6), generator=gen, device=dev) * scale(1e-3, 1e-2)
+    sign = torch.randint(0, 2, (n, 2, 6), generator=gen, device=dev) * 2.0 - 1.0
+    w[:, :2] = sign * scale(1.0, 3.0)
+    state = dataclasses.replace(types.make_zero_state(model, n), q=q, qd=torch.zeros((n, model.nv), device=dev))
+    quat = engine.forward(model, None, state).body_quat[:, env.object_body]
+    force = torch.randn((n, 3), generator=gen, device=dev) * env.object_mass * env.force_scale
+    w[:, env.object_body, :3] = torch.randn((n, 3), generator=gen, device=dev) * 2e-3
+    w[:, env.object_body, 3:] = maths.quat_rotate(quat, force)
+    return w
+
+
+# f_ext - [contact torque, contact force] against the body wrench: one fp32
+# add and one subtract, each within an ulp of |contacts| + |wrench|
+WRENCH_RTOL = 1e-6
+
+
+def check_wrench_mode(label: str, out, bw) -> float:
+    """B2's wrench mode held to its contract on its own outputs `out`
+    (f_ext, contact force, contact torque, ...) for the body wrenches `bw`:
+    in every env and each of the nb x 6 entries, f_ext is the contacts'
+    wrench [contact torque, contact force] plus `bw`, to WRENCH_RTOL of
+    their size; the welded root bodies have no contact, so their contact
+    force and torque are exactly 0 whatever their wrench.  A wrench added to
+    the contact torque, or an entry dropped or misplaced, fails.  Returns the
+    largest error relative to the entry's size."""
+    f_ext, cf, ct = out[:3]
+    contacts = torch.cat([ct, cf], -1)
+    err = (f_ext - contacts - bw).abs()
+    size = contacts.abs() + bw.abs()
+    bad = int((err > WRENCH_RTOL * size).sum())
+    if bad:
+        raise AssertionError(f"{label}: {bad} wrench entries where f_ext != contacts + body wrench within "
+                             f"{WRENCH_RTOL} of their size (max abs err {float(err.max()):.4g})")
+    if float(contacts[:, :2].abs().max()) != 0.0:
+        raise AssertionError(f"{label}: a contact force or torque on the welded root bodies, which carry "
+                             f"{float(bw[:, :2].abs().max()):.4g} of body wrench and have no contact")
+    return float((err / size.clamp(min=1e-30)).max())
+
+
+def phase_split_vs_plain(env, wrench: bool = False) -> dict:
     """B2 + B3 against `split_substep_plain` at the slice's width, and each
-    kernel alone against its own plain version; timings and bounds."""
+    kernel alone against its own plain version; timings and bounds.  With
+    `wrench`, every call carries the task-like body wrenches of `task_wrench`
+    (B2's wrench mode) and B3 alone is not repeated."""
     from isaacgymenv_tpu_torch.physics import contact, engine, fused_split, kinematics
     from isaacgymenv_tpu_torch.physics.fused import from_minor, to_minor
 
@@ -1045,25 +1164,40 @@ def phase_split_vs_plain(env) -> dict:
     n, h = env.num_envs, env.dt / env.substeps
     tables = fused_split.tables_for(model, dev)
     q, qd, tgt, slip_p = (t.to(dev) for t in cube_on_palm_state(env, n, seed=1))
+    bw = task_wrench(env, q, seed=5) if wrench else None
+    b2 = "B2 (wrench mode)" if wrench else "B2"
+    label = f"{b2} + B3"
     zero = torch.zeros_like(tgt)
     slip_g = torch.zeros((n, model.ng, 3), device=dev)
     ctl = (tgt, zero, zero)
     args = (q, qd, *ctl, slip_g, slip_p, h, env.substeps)
+    if wrench:
+        carrying = int((bw != 0).any(-1).any(-1).sum())
+        print(f"{label}: {carrying} of {n} envs carry a nonzero body wrench, max |force| on the cube "
+              f"{float(bw[:, env.object_body, 3:].norm(dim=-1).max()):.4g} N")
+        if carrying == 0:
+            raise AssertionError("no env carries a body wrench; the wrench mode is not exercised")
 
     kin = kinematics.fk(model, q, qd)
     body_pos, R_w, _, _, geom_pos, _ = engine._geom_world(model, kin)
     active = int(contact.pair_active(model, geom_pos, body_pos, R_w).any(-1).sum())
-    out = fused_split.split_substep(tables, *args)
+    out = fused_split.split_substep(tables, *args, body_wrench=bw)
     # both one substep at a time (the same arithmetic as substeps=2), to
     # read each one's state at the second substep's start
-    k1 = fused_split.split_substep(tables, q, qd, *ctl, slip_g, slip_p, h, 1)
-    mid = fused_split.split_substep_plain(tables, q, qd, *ctl, slip_g, slip_p, h, 1)
-    ref = fused_split.split_substep_plain(tables, mid[0], mid[1], *ctl, mid[5], mid[6], h, 1)
+    k1 = fused_split.split_substep(tables, q, qd, *ctl, slip_g, slip_p, h, 1, body_wrench=bw)
+    mid = fused_split.split_substep_plain(tables, q, qd, *ctl, slip_g, slip_p, h, 1, body_wrench=bw)
+    ref = fused_split.split_substep_plain(tables, mid[0], mid[1], *ctl, mid[5], mid[6], h, 1, body_wrench=bw)
     # the plain second substep from the kernel's own state
-    ref_k = fused_split.split_substep_plain(tables, k1[0], k1[1], *ctl, k1[5], k1[6], h, 1)
+    ref_k = fused_split.split_substep_plain(tables, k1[0], k1[1], *ctl, k1[5], k1[6], h, 1, body_wrench=bw)
     if not all(torch.equal(a, b) for a, b in zip(out[:2], fused_split.split_substep(
-            tables, k1[0], k1[1], *ctl, k1[5], k1[6], h, 1)[:2])):
+            tables, k1[0], k1[1], *ctl, k1[5], k1[6], h, 1, body_wrench=bw)[:2])):
         raise AssertionError("split_substep: two substeps differ from two chained single substeps")
+    if wrench:  # the wrench moves the cube: the kernel pair without it ends elsewhere
+        qa = model.q_adr[env.object_body]
+        moved = float((out[0] - fused_split.split_substep(tables, *args)[0])[:, qa:qa + 3].abs().max())
+        print(f"{label}: the wrench moves the cube by up to {moved:.4g} m in one control step")
+        if moved < 1e-5:
+            raise AssertionError("the body wrench does not move the cube")
 
     # the witness: B2's own live counts at each substep's start
     flip1 = count_flips(tables, (q, qd, slip_g, slip_p), (q, qd), h)
@@ -1088,11 +1222,11 @@ def phase_split_vs_plain(env) -> dict:
     _check_flips("substep 2 from the kernel's state", flip_k, at_k)
     all_err = {name: float((a - b).abs().max()) for name, a, b in zip(SPLIT_TOLS, out, ref)
                if SPLIT_TOLS[name] is not None}
-    pair_err = _compare("split_substep (B2 + B3)", out, ref, SPLIT_TOLS, skip)
-    second_err = _compare("split_substep (B2 + B3), second substep from the kernel's state", out, ref_k,
+    pair_err = _compare(f"split_substep ({label})", out, ref, SPLIT_TOLS, skip)
+    second_err = _compare(f"split_substep ({label}), second substep from the kernel's state", out, ref_k,
                           SPLIT_TOLS, flip_k)
     last = int((ref[3].abs().sum(-1) > 0).any(-1).sum())
-    print(f"B2 + B3 vs plain at {n} envs, {env.substeps} substeps: max abs err {pair_err} over the {n - n_skip} envs "
+    print(f"{label} vs plain at {n} envs, {env.substeps} substeps: max abs err {pair_err} over the {n - n_skip} envs "
           f"whose live contact counts agree with B2's at both substeps' starts ({n_skip} whose do not: max abs err "
           f"over all envs {all_err}); envs with an active pair contact: {active} at the start, {last} at the "
           f"last substep")
@@ -1108,59 +1242,63 @@ def phase_split_vs_plain(env) -> dict:
     # one substep, B3 from the plain f_ext
     c_tols = {"f_ext": (2e-3, 5e-2), "contact_force": (2e-3, 5e-2), "contact_torque": (2e-3, 5e-2),
               "slip_g": None, "slip_p": (2e-3, 1e-5)}
-    c_ref = fused_split.contacts_plain(tables, q, qd, slip_g, slip_p, h)
-    c_err = _compare("split_contacts (B2)", contacts_kernel(tables, q, qd, slip_g, slip_p, h)[:5], c_ref,
-                     c_tols, flip1)
+    c_ref = fused_split.contacts_plain(tables, q, qd, slip_g, slip_p, h, body_wrench=bw)
+    c_out = contacts_kernel(tables, q, qd, slip_g, slip_p, h, bw)
+    c_err = _compare(f"split_contacts ({b2})", c_out[:5], c_ref, c_tols, flip1)
     k_state = (k1[0], k1[1], k1[5], k1[6])
-    c_err_k = _compare("split_contacts (B2) at the kernel's state", contacts_kernel(tables, *k_state, h)[:5],
-                       fused_split.contacts_plain(tables, *k_state, h), c_tols, flip_k)
-    f_ext = c_ref[0]
-    d_ref = fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h)
-    qT, qdT, tgtT, zT, fextT, slip_pT = (to_minor(t, n) for t in (q, qd, tgt, zero, f_ext, slip_p))
-    dof_force = torch.empty((model.nd, n), device=dev)
-    q2, qd2 = qT.clone(), qdT.clone()
-    fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h)
-    d_out = (from_minor(q2, n, model.nq), from_minor(qd2, n, model.nv), from_minor(dof_force, n, model.nd))
-    d_err = _compare("split_dynamics (B3)", d_out, d_ref,
-                     {"q": SPLIT_TOLS["q"], "qd": SPLIT_TOLS["qd"], "dof_force": SPLIT_TOLS["dof_force"]})
-    print(f"B2 alone vs contacts_plain: max abs err {c_err} at the start (over the {n - int(flip1.sum())} envs "
-          f"whose counts agree), {c_err_k} at the kernel's state after one substep; B3 alone vs dynamics_plain: "
-          f"max abs err {d_err}")
+    c_out_k = contacts_kernel(tables, *k_state, h, bw)
+    c_err_k = _compare(f"split_contacts ({b2}) at the kernel's state", c_out_k[:5],
+                       fused_split.contacts_plain(tables, *k_state, h, body_wrench=bw), c_tols, flip_k)
+    print(f"{b2} alone vs contacts_plain: max abs err {c_err} at the start (over the {n - int(flip1.sum())} envs "
+          f"whose counts agree), {c_err_k} at the kernel's state after one substep")
+    if wrench:
+        w_err = [check_wrench_mode(f"{b2}{at}", o, bw) for at, o in (("", c_out), (" at the kernel's state", c_out_k))]
+        print(f"{b2}: f_ext = contacts + body wrench in all {n} envs x {model.nb * 6} entries, largest error "
+              f"{max(w_err):.3g} of the entry's size (limit {WRENCH_RTOL}); contact force and torque exactly 0 on "
+              f"the welded root under its 3 N and 1 N m of body wrench")
 
     # timed in place: each call advances its own copy of the state by one substep
-    fext, cf, ct = torch.empty_like(fextT), torch.empty((3 * model.nb, n), device=dev), \
-        torch.empty((3 * model.nb, n), device=dev)
-    c_ms = cuda_ms(lambda: fused_split.launch_contacts(tables, qT, qdT, None, slip_pT, fext, cf, ct, h))
-    d_ms = cuda_ms(lambda: fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h))
-    c_plain = cuda_ms(lambda: fused_split.contacts_plain(tables, q, qd, slip_g, slip_p, h), warmup=1, runs=5)
-    d_plain = cuda_ms(lambda: fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h), warmup=1, runs=5)
-    wrap_ms = cuda_ms(lambda: fused_split.split_substep(tables, *args))
-    plain_ms = cuda_ms(lambda: fused_split.split_substep_plain(tables, *args), warmup=1, runs=5)
-
-    table_bytes = tables.table.numel() + 4 * (tables.pint.numel() + tables.pflt.numel())
-    c_bytes = table_bytes + 4 * n * (
-        model.nq + model.nv                    # q, qd in
-        + 6 * model.n_pairs                    # slip_p in and out
-        + (0 if model.no_ground else 6 * model.ng)
-        + 12 * model.nb                        # f_ext, contact force and torque out
-    )
-    d_bytes = tables.table.numel() + 4 * n * (
-        2 * (model.nq + model.nv)              # q, qd in and out
-        + 3 * model.nd + 6 * model.nb          # targets, effort, f_ext in
-        + model.nd                             # dof_force out
-    )
-    cb = bound(c_bytes, split_contacts_flops(model, n))
-    db = bound(d_bytes, split_dynamics_flops(model, n))
-    for label, ms, pms, b in (("split_contacts", c_ms, c_plain, cb), ("split_dynamics", d_ms, d_plain, db)):
-        print(f"{label}: kernel {ms:.4f} ms per launch, plain {pms:.4f} ms; bound: {b['bytes']} bytes "
+    qT, qdT, slip_pT = (to_minor(t, n) for t in (q, qd, slip_p))
+    bwT = None if bw is None else to_minor(bw, n)
+    fext, cf, ct = (torch.empty((k * model.nb, n), device=dev) for k in (6, 3, 3))
+    c_ms = cuda_ms(lambda: fused_split.launch_contacts(tables, qT, qdT, None, slip_pT, fext, cf, ct, h, bwT=bwT))
+    c_plain = cuda_ms(lambda: fused_split.contacts_plain(tables, q, qd, slip_g, slip_p, h, body_wrench=bw),
+                      warmup=1, runs=5)
+    wrap_ms = cuda_ms(lambda: fused_split.split_substep(tables, *args, body_wrench=bw))
+    plain_ms = cuda_ms(lambda: fused_split.split_substep_plain(tables, *args, body_wrench=bw), warmup=1, runs=5)
+    cb = bound(split_contacts_bytes(tables, n, wrench), split_contacts_flops(model, n, wrench))
+    result = {"split_contacts": {"max_abs_err": max(max(c_err.values()), max(c_err_k.values())),
+                                 "max_err": c_err, "ms": c_ms, "plain_ms": c_plain, **cb}}
+    kernels = [("split_contacts" + (" (wrench mode)" if wrench else ""), c_ms, c_plain, cb)]
+    if not wrench:  # B3 alone, from the plain f_ext (it takes no wrench input)
+        f_ext = c_ref[0]
+        d_ref = fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h)
+        tgtT, zT, fextT = (to_minor(t, n) for t in (tgt, zero, f_ext))
+        dof_force = torch.empty((model.nd, n), device=dev)
+        q2, qd2 = qT.clone(), qdT.clone()
+        fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h)
+        d_out = (from_minor(q2, n, model.nq), from_minor(qd2, n, model.nv), from_minor(dof_force, n, model.nd))
+        d_err = _compare("split_dynamics (B3)", d_out, d_ref,
+                         {"q": SPLIT_TOLS["q"], "qd": SPLIT_TOLS["qd"], "dof_force": SPLIT_TOLS["dof_force"]})
+        print(f"B3 alone vs dynamics_plain: max abs err {d_err}")
+        d_ms = cuda_ms(lambda: fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h))
+        d_plain = cuda_ms(lambda: fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h), warmup=1, runs=5)
+        d_bytes = tables.table.numel() + 4 * n * (
+            2 * (model.nq + model.nv)              # q, qd in and out
+            + 3 * model.nd + 6 * model.nb          # targets, effort, f_ext in
+            + model.nd                             # dof_force out
+        )
+        db = bound(d_bytes, split_dynamics_flops(model, n))
+        result["split_dynamics"] = {"max_abs_err": max(d_err.values()), "max_err": d_err, "ms": d_ms,
+                                    "plain_ms": d_plain, **db}
+        kernels.append(("split_dynamics", d_ms, d_plain, db))
+    for name, ms, pms, b in kernels:
+        print(f"{name}: kernel {ms:.4f} ms per launch, plain {pms:.4f} ms; bound: {b['bytes']} bytes "
               f"-> {b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
-    print(f"split_substep wrapper ({env.substeps} x (B2 -> B3) with the env-minor copies): {wrap_ms:.4f} ms; "
+    print(f"split_substep wrapper ({env.substeps} x ({label}) with the env-minor copies): {wrap_ms:.4f} ms; "
           f"split_substep_plain {plain_ms:.4f} ms")
     return {
-        "split_contacts": {"max_abs_err": max(max(c_err.values()), max(c_err_k.values())),
-                           "max_err": c_err, "ms": c_ms, "plain_ms": c_plain, **cb},
-        "split_dynamics": {"max_abs_err": max(d_err.values()), "max_err": d_err, "ms": d_ms, "plain_ms": d_plain,
-                           **db},
+        **result,
         "pair": {"max_err": pair_err, "max_err_all_envs": all_err, "count_flip_envs": n_skip, "witness": witness,
                  "max_err_second_substep_from_kernel_state": second_err,
                  "wrapper_ms": wrap_ms, "plain_ms": plain_ms, "active_envs": active,
@@ -1221,6 +1359,7 @@ def main() -> int:
     import isaacgymenv_tpu_torch
     from isaacgymenv_tpu_torch.physics import fused
 
+    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1248,12 +1387,25 @@ def main() -> int:
     k23 = phase_split_vs_plain(env)
     del env
     torch.cuda.empty_cache()
-    hand = phase_slice("ShadowHand", HAND_ENVS, {"fused_substep": 0, "split_contacts": 2, "split_dynamics": 2}, card)
+    split = {"fused_substep": 0, "split_contacts": 2, "split_dynamics": 2}
+    hand = phase_slice("ShadowHand", HAND_ENVS, split, card)
     # obs as tests/test_torch_shadow_hand.py
-    phase_slice_vs_plain(
-        "ShadowHand", {"obs": (2e-3, 5e-3), "rew": (1e-3, 1e-3), "done": (0, 0), "q": (5e-4, 5e-4)},
-        seed_state=lambda env, n: cube_on_palm_state(env, n, seed=2)[:2],
-    )
+    hand_tols = {"obs": (2e-3, 5e-3), "rew": (1e-3, 1e-3), "done": (0, 0), "q": (5e-4, 5e-4)}
+    on_palm = lambda env, n: cube_on_palm_state(env, n, seed=2)[:2]  # noqa: E731
+    phase_slice_vs_plain("ShadowHand", hand_tols, seed_state=on_palm)
+
+    # ShadowHandOpenAI_FF: B2's wrench mode, the acting step with random object
+    # forces, the env step against the CPU, training with the central value
+    env = isaacgymenv_tpu_torch.make("ShadowHandOpenAI_FF", num_envs=HAND_ENVS)
+    k2w = phase_split_vs_plain(env, wrench=True)
+    del env
+    torch.cuda.empty_cache()
+    openai = phase_slice("ShadowHandOpenAI_FF", HAND_ENVS, split, card)
+    # states as the obs (tests/test_torch_shadow_hand.py), the object force elementwise
+    phase_slice_vs_plain("ShadowHandOpenAI_FF", {**hand_tols, "states": (2e-3, 5e-3), "rb_force": (1e-6, 1e-7)},
+                         seed_state=on_palm)
+    hand_training = phase_train(card, "ShadowHandOpenAI_FF", HAND_ENVS, HAND_TRAIN_EPOCHS, split)
+    torch.cuda.empty_cache()
 
     # Ant: B1's sensor mode, the acting step, the env step against the CPU, training
     env = isaacgymenv_tpu_torch.make("Ant", num_envs=N_ENVS)
@@ -1265,7 +1417,7 @@ def main() -> int:
     # (-|to_target| / dt), whose fp32 spacing is 0.0039
     phase_slice_vs_plain("Ant", {"obs": (1e-3, 1e-2), "rew": (1e-3, 1e-2), "done": (0, 0), "q": (2e-4, 2e-4)},
                          seed_state=lambda env, n: ant_contact_state(env, n, seed=2))
-    training = phase_train(card)
+    training = phase_train(card)  # Ant at N_ENVS, B1 once per step
 
     kernels = [
         kernel_entry("fused_substep", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
@@ -1279,12 +1431,18 @@ def main() -> int:
         kernel_entry("split_contacts", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
                      "isaacgymenv_tpu/physics/fused_split.py:350", hand["split_contacts"], k23["split_contacts"],
                      "flat or no_ground, pairs (ShadowHand)"),
+        kernel_entry("split_contacts_wrench", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
+                     "isaacgymenv_tpu/physics/fused_split.py:350", openai["split_contacts"], k2w["split_contacts"],
+                     "wrench_mode, no_ground, pairs (ShadowHandOpenAI_FF)"),
         kernel_entry("split_dynamics", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
                      "isaacgymenv_tpu/physics/fused_split.py:755", hand["split_dynamics"], k23["split_dynamics"],
                      "joints, drives, tendons (ShadowHand)"),
     ]
-    print(json.dumps({"kernels": kernels, "split_pair": k23["pair"], "split_pair_ground": ground,
-                      "terrain_env_step": terrain_env_step, "sensors_fixed_joint_scene": k1q, "training": training}))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s of wall time, the builds "
+          f"included")
+    print(json.dumps({"kernels": kernels, "split_pair": k23["pair"], "split_pair_wrench": k2w["pair"],
+                      "split_pair_ground": ground, "terrain_env_step": terrain_env_step,
+                      "sensors_fixed_joint_scene": k1q, "training": training, "training_hand": hand_training}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -6,15 +6,18 @@
 // isaacgymenv_tpu_torch/physics/fused_split.py:split_structural_ok accepts:
 // B1's joints and drives (substep_common.cuh), flat-ground or `no_ground`
 // scenes, body-vs-body pair contacts of spheres against sphere, box, capsule
-// and capped-cylinder surfaces, and fixed tendons.  No anchors, gravity
-// compensation, force sensors, body wrenches, terrain or per-env model leaves.
+// and capped-cylinder surfaces, fixed tendons, and B2's wrench mode (an
+// optional external wrench per body, `bw`).  No anchors, gravity
+// compensation, force sensors, terrain or per-env model leaves.
 //
 // B2: FK -> pass 1 counts the live contacts per body (ground geoms, then a
 // rolled loop over the pair table) -> pass 2 divides each contact's
 // effective-mass budget by its bodies' counts and accumulates the forces
-// per body (ground, then pairs) -> writes the world external wrench f_ext
-// per body and the contact force and torque; the slip states are updated in
-// place.  B3: FK again (as the TPU kernel does, rather than moving 36 floats
+// per body (ground, then pairs) -> writes the contact force and torque,
+// then adds the body wrench when `bw` is given (wrench mode, the order of
+// fused_split.py:742-749: the contact torque is the contacts' moment alone)
+// and writes the world external wrench f_ext per body; the slip states are
+// updated in place.  B3: FK again (as the TPU kernel does, rather than moving 36 floats
 // per body through memory) -> drive, passive and tendon forces -> ABA with
 // f_ext -> semi-implicit integration; q and qd are updated in place.  The
 // contact force/torque of the last substep's B2 and the dof force of its B3
@@ -31,7 +34,8 @@
 // output is env-minor, element (k, env) at k * n + env.
 //
 // What bounds it: B2 streams the pair slip state (3 floats per pair, read
-// and written) and loops twice over the pairs per env; B3 is B1's serial
+// and written) and loops twice over the pairs per env (in wrench mode it
+// also reads 6 floats per body, one add each); B3 is B1's serial
 // FK + ABA chain.  Per-body state lives in per-thread local arrays, as in
 // B1.  This is the simple design; the layout is later work.
 //
@@ -154,6 +158,7 @@ struct ContactsIO {
     float* cf;          // (nb*3, n) out: contact force
     float* ct;          // (nb*3, n) out: contact torque (the moment of fext)
     float* counts;      // (nb, n) out, or null: live contacts per body (pass 1)
+    const float* bw;    // (nb*6, n) or null: the body wrenches of wrench mode, world [moment, force]
 };
 
 FS_HD static void contacts_env(const SplitModel& S, const int* pint, const float* pflt,
@@ -258,10 +263,14 @@ FS_HD static void contacts_env(const SplitModel& S, const int* pint, const float
     }
 
     for (int b = 0; b < nb; ++b) {
-        for (int c = 0; c < 6; ++c) io.fext[(size_t)(6 * b + c) * n + e] = fext[b][c];
         for (int c = 0; c < 3; ++c) {
             io.cf[(size_t)(3 * b + c) * n + e] = cf[b][c];
-            io.ct[(size_t)(3 * b + c) * n + e] = fext[b][c];
+            io.ct[(size_t)(3 * b + c) * n + e] = fext[b][c];  // before the wrench
+        }
+        for (int c = 0; c < 6; ++c) {
+            float v = fext[b][c];
+            if (io.bw) v += io.bw[(size_t)(6 * b + c) * n + e];
+            io.fext[(size_t)(6 * b + c) * n + e] = v;
         }
     }
 }
@@ -330,9 +339,9 @@ static const int kThreads = 64;  // two warps per block
 // Each launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int split_contacts_launch(const void* model, const int* pint, const float* pflt,
                                      const float* q, const float* qd, float* slip_g, float* slip_p,
-                                     float* fext, float* cf, float* ct, float* counts,
+                                     float* fext, float* cf, float* ct, float* counts, const float* bw,
                                      int n, float h, float hh, void* stream) {
-    ContactsIO io{q, qd, slip_g, slip_p, fext, cf, ct, counts};
+    ContactsIO io{q, qd, slip_g, slip_p, fext, cf, ct, counts, bw};
     split_contacts_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
         (const SplitModel*)model, pint, pflt, io, n, h, hh);
     return (int)cudaGetLastError();

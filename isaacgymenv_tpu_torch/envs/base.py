@@ -10,7 +10,9 @@ the task's post-physics hook, then one of the two reset timings:
 - "immediate" (the terrain tasks): reward and done from the pre-reset
   state -> reset the envs done now -> obs, the new episode's first.
 Then `time_outs` (progress >= max_len - 1 and done), the task's observation
-noise, and the obs clip.
+noise, and the obs clip.  A task with an asymmetric critic (`num_states` >
+0) also returns its privileged `states` (the `_states` hook) in the obs
+dict, clipped as the obs.
 
 Random numbers: the initial task-state draws (a task's
 `sample_initial_draws`, e.g. AnymalTerrain's terrain levels and types), the
@@ -54,6 +56,7 @@ class TaskEnv(abc.ABC):
     terrain: Any = None
     num_obs: int
     num_actions: int
+    num_states: int = 0  # width of the privileged `states` (asymmetric critic); 0: none
     reset_timing = "deferred"  # or "immediate" (see the module docstring)
 
     def __init__(self, cfg: Dict[str, Any], device):
@@ -107,6 +110,19 @@ class TaskEnv(abc.ABC):
         """Additive observation noise from the step's draws (none by default)."""
         return obs
 
+    def _states(self, state: EnvState, obs: torch.Tensor) -> Optional[torch.Tensor]:
+        """(N, num_states) privileged state of an asymmetric critic, or None."""
+        return None
+
+    def _obs_dict(self, state: EnvState, obs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """{"obs": obs clipped} and, when the task has them, its `states` clipped alike."""
+        obs = torch.clamp(obs, -self.clip_obs, self.clip_obs)
+        out = {"obs": obs}
+        states = self._states(state, obs)
+        if states is not None:
+            out["states"] = torch.clamp(states, -self.clip_obs, self.clip_obs)
+        return out
+
     def _initial_ts(self) -> Dict[str, torch.Tensor]:
         return {}
 
@@ -140,7 +156,7 @@ class TaskEnv(abc.ABC):
         """The current obs without stepping (zero actions, no noise), as the
         learner reads them at its start."""
         actions = torch.zeros((self.num_envs, self.num_actions), device=self.device)
-        return {"obs": torch.clamp(self._observations(state, actions), -self.clip_obs, self.clip_obs)}
+        return self._obs_dict(state, self._observations(state, actions))
 
     def step(
         self, state: EnvState, actions: torch.Tensor,
@@ -175,5 +191,4 @@ class TaskEnv(abc.ABC):
             timeout = (state.progress >= self.max_episode_length - 1) & done
         state = dataclasses.replace(state, reset=done)
 
-        obs = torch.clamp(self._obs_noise(obs, draws), -self.clip_obs, self.clip_obs)
-        return state, {"obs": obs}, rew, done, {"time_outs": timeout, **info}
+        return state, self._obs_dict(state, self._obs_noise(obs, draws)), rew, done, {"time_outs": timeout, **info}

@@ -8,12 +8,14 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Callable] = {}
 
 # (module, registry name) of the ported tasks
-_TASKS = [("anymal", "Anymal"), ("anymal_terrain", "AnymalTerrain"), ("shadow_hand", "ShadowHand"), ("ant", "Ant")]
+_TASKS = [("anymal", "Anymal"), ("anymal_terrain", "AnymalTerrain"), ("shadow_hand", "ShadowHand"),
+          ("shadow_hand", "ShadowHandOpenAI_LSTM"), ("ant", "Ant")]
 
 
-def register(name: str):
+def register(*names: str):
     def deco(cls):
-        _REGISTRY[name] = cls
+        for name in names:
+            _REGISTRY[name] = cls
         return cls
 
     return deco

@@ -7,17 +7,28 @@ Counterpart of `isaacgymenv_tpu/envs/shadow_hand.py`:
   sphere-surface contact pairs between the two; no ground pass (`no_ground`);
 - act (N, 20): absolute position targets scaled to the actuated dofs' limits
   with a moving average, or relative targets (dofSpeedScale);
-- obs (N, 211), `full_state`: unscaled dof pos, 0.2 dof vel, 10 dof force,
-  object pose and velocities, goal pose, their quaternion difference, the
-  fingertip states and 10 x the fingertip contact wrenches, the actions;
+- obs, `observationType`: `full_state` (N, 211): unscaled dof pos, 0.2 dof
+  vel, 10 dof force, object pose and velocities, goal pose, their
+  quaternion difference, the fingertip states and 10 x the fingertip
+  contact wrenches, the actions; or `openai` (N, 42): the fingertip
+  positions, the object position, the quaternion difference, the actions;
+- states (N, 211) under `asymmetric_observations`: the full_state vector,
+  for the central-value critic;
 - reward: distance and rotation-distance terms plus an action penalty;
   +reachGoalBonus when the rotation distance is within the tolerance, which
   also resamples the goal at the next step without an env reset;
 - done: the cube falls further than fallDistance from the goal, or timeout;
 - reset: object position noise and a random rotation, dofs at
-  noise * U(lower, upper), targets snapped to them, a new goal.
-The random object forces (forceScale > 0) need body wrenches, which the port
-does not have yet.
+  noise * U(lower, upper), targets snapped to them, a new goal, the object
+  force zeroed and its per-env probability redrawn log-uniform in
+  forceProbRange;
+- random object forces (forceScale > 0): each step the object's force decays
+  by forceDecay ** (dt / forceDecayInterval); where a U(0, 1) draw falls
+  under the env's probability it is replaced by N(0, 1) x mass x forceScale
+  in the object's local frame, rotated into the world by the object pose of
+  the last refresh and applied at the object's origin as a body wrench
+  (`Control.body_wrench`: B2's wrench mode on the card).
+Not ported: the `full_no_vel` and `full` observations, the egg and pen objects.
 """
 
 from __future__ import annotations
@@ -46,10 +57,10 @@ from isaacgymenv_tpu_torch.physics.urdf import AssetOptions, load_urdf
 from isaacgymenv_tpu_torch.utils.config import asset_root
 
 
-@register("ShadowHand")
+@register("ShadowHand", "ShadowHandOpenAI_LSTM")
 class ShadowHand(TaskEnv):
     num_actions = 20
-    num_obs = 211
+    NUM_OBS = {"openai": 42, "full_state": 211}
 
     hand_asset = "mjcf/open_ai_assets/hand/shadow_hand.xml"
     fingertips = (
@@ -63,10 +74,12 @@ class ShadowHand(TaskEnv):
         e = cfg["env"]
         e.setdefault("maxEpisodeLength", int(e.get("episodeLength", 600)))
         super().__init__(cfg, device)
-        if e.get("observationType", "full_state") != "full_state" or e.get("asymmetric_observations", False):
-            raise NotImplementedError("only the full_state observation without asymmetric states is ported")
-        if float(e.get("forceScale", 0.0)) > 0.0:
-            raise NotImplementedError("random object forces (forceScale > 0) need body wrenches, not ported yet")
+        self.obs_type = e.get("observationType", "full_state")
+        if self.obs_type not in self.NUM_OBS:
+            raise NotImplementedError(f"the {self.obs_type} observation is not ported (ported: {list(self.NUM_OBS)})")
+        self.num_obs = self.NUM_OBS[self.obs_type]
+        self.asymmetric_obs = bool(e.get("asymmetric_observations", False))
+        self.num_states = self.NUM_OBS["full_state"] if self.asymmetric_obs else 0
         if e.get("objectType", "block") != "block":
             raise NotImplementedError(f"only the block object is ported (got {e.get('objectType')})")
 
@@ -86,7 +99,10 @@ class ShadowHand(TaskEnv):
         self.use_relative_control = bool(e.get("useRelativeControl", False))
         self.dof_speed_scale = float(e.get("dofSpeedScale", 20.0))
         self.act_moving_average = float(e.get("actionsMovingAverage", 1.0))
+        self.force_scale = float(e.get("forceScale", 0.0))
         self.force_prob_range = tuple(float(x) for x in e.get("forceProbRange", [0.001, 0.1]))
+        self.force_decay = float(e.get("forceDecay", 0.99))
+        self.force_decay_interval = float(e.get("forceDecayInterval", 0.08))
         self.vel_obs_scale = 0.2
         self.ft_obs_scale = 10.0
 
@@ -117,6 +133,7 @@ class ShadowHand(TaskEnv):
             list(np.add(self.hand_start, self.object_offset)) + [0, 0, 0, 1] + [0.0] * 6, **f32
         )
         self.goal_pos = self.object_init[0:3] - torch.tensor([0.0, 0.0, 0.04], **f32)
+        self.object_mass = float(self.model.body_mass[self.object_body])
 
     # ------------------------------------------------------------------
     def _initial_ts(self):
@@ -151,8 +168,15 @@ class ShadowHand(TaskEnv):
         }
 
     def sample_step_draws(self, rng, n):
-        """goal (n, 2) ~ U(-1, 1): the angle pair of a goal-only reset."""
-        return {"goal": self._uniform(rng, -1.0, 1.0, (n, 2))}
+        """goal (n, 2) ~ U(-1, 1): the angle pair of a goal-only reset; with
+        random object forces also force_fire (n,) ~ U(0, 1), compared with
+        each env's force probability, and force (n, 3) ~ N(0, 1), a new force's
+        direction and size in the object frame."""
+        draws = {"goal": self._uniform(rng, -1.0, 1.0, (n, 2))}
+        if self.force_scale > 0.0:
+            draws["force_fire"] = self._uniform(rng, 0.0, 1.0, (n,))
+            draws["force"] = torch.randn((n, 3), generator=rng, device=self.device)
+        return draws
 
     def _random_quat(self, r):
         """Rotation by pi * r[:, 0] about x, then pi * r[:, 1] about y."""
@@ -213,6 +237,15 @@ class ShadowHand(TaskEnv):
         ts["cur_targets"] = cur
         ts["actions"] = actions
         ctrl = dataclasses.replace(engine.Control.zero(self.model, actions.shape[0]), pos_target=cur)
+        if self.force_scale > 0.0:
+            force = ts["rb_force"] * self.force_decay ** (self.dt / self.force_decay_interval)
+            fire = draws["force_fire"] < ts["force_prob"]
+            force = torch.where(fire[:, None], draws["force"] * self.object_mass * self.force_scale, force)
+            ts["rb_force"] = force
+            # the object-frame force rotated by the pose of the last refresh, at the object's origin
+            wrench = torch.zeros((actions.shape[0], self.model.nb, 6), device=self.device)
+            wrench[:, self.object_body, 3:6] = maths.quat_rotate(state.sim.body_quat[:, self.object_body], force)
+            ctrl = dataclasses.replace(ctrl, body_wrench=wrench)
         return ctrl, dataclasses.replace(state, ts=ts)
 
     # ------------------------------------------------------------------
@@ -221,6 +254,19 @@ class ShadowHand(TaskEnv):
         return rs[:, 0:3], rs[:, 3:7], rs[:, 7:10], rs[:, 10:13]
 
     def _observations(self, state, actions):
+        if self.obs_type == "openai":
+            sim, ts = state.sim, state.ts
+            obj_pos, obj_rot, _, _ = self._object_state(state)
+            quat_diff = maths.quat_mul(obj_rot, maths.quat_conjugate(ts["goal_rot"]))
+            ft_pos = sim.body_pos[:, self.fingertip_bodies].reshape(sim.q.shape[0], 15)
+            return torch.cat([ft_pos, obj_pos, quat_diff, ts["actions"]], dim=-1)
+        return self._full_state(state)
+
+    def _states(self, state, obs):
+        return self._full_state(state) if self.asymmetric_obs else None
+
+    def _full_state(self, state):
+        """(N, 211): the full_state observation, also the asymmetric critic's states."""
         m, sim, ts = self.model, state.sim, state.ts
         n = sim.q.shape[0]
         obj_pos, obj_rot, obj_linvel, obj_angvel = self._object_state(state)

@@ -13,7 +13,17 @@ a state carries over from the JAX learner (`interop.train_state_from_jax`)
 and checkpoints as plain tensors.  Random numbers come from the
 `torch.Generator` in `TrainState.rng` (policy noise, minibatch permutations)
 and in the env state; a test injects its own (`noise=`, `perms=`,
-`reset_draws=`).  Nothing here moves a tensor to the host inside an epoch.
+`cv_perms=`, `reset_draws=`).  Nothing here moves a tensor to the host
+inside an epoch.
+
+Asymmetric actor-critic (a `central_value_config` and an env with
+`num_states` > 0, ShadowHandOpenAI_FF): the values of the rollout, of the
+GAE bootstrap and of the time-out bootstrap come from a `CentralValueNet` on
+the env's normalized `states`; the actor's loss drops its value term (its
+value head gets no gradient); the central value is fitted after the actor's
+mini-epochs by its own minibatch passes (`cv_mini_epochs`, the actor's
+minibatch count), its own Adam at the central-value learning rate (constant)
+after the same global-norm clip, to the clipped value loss.
 """
 
 from __future__ import annotations
@@ -28,7 +38,13 @@ import torch
 from torch.func import functional_call
 
 from isaacgymenv_tpu_torch.envs.base import EnvState, TaskEnv
-from isaacgymenv_tpu_torch.learning.networks import ActorCritic, gaussian_entropy, gaussian_kl, gaussian_logp
+from isaacgymenv_tpu_torch.learning.networks import (
+    ActorCritic,
+    CentralValueNet,
+    gaussian_entropy,
+    gaussian_kl,
+    gaussian_logp,
+)
 from isaacgymenv_tpu_torch.learning.running_stats import RunningStats
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -87,6 +103,15 @@ class PPOConfig:
 
 
 @dataclass
+class CVState:
+    """The asymmetric critic's part of a train state."""
+    params: Dict[str, torch.Tensor]   # the CentralValueNet's parameters, by name
+    opt_state: Dict[str, Any]         # its Adam state, as TrainState.opt_state
+    stats: RunningStats               # the running normalizer of the states
+    last_states: Optional[torch.Tensor]
+
+
+@dataclass
 class TrainState:
     params: Dict[str, torch.Tensor]   # the ActorCritic's parameters, by name
     opt_state: Dict[str, Any]         # Adam: {"mu": {name: t}, "nu": {name: t}, "count": int32 ()}
@@ -101,6 +126,7 @@ class TrainState:
     ep_length: torch.Tensor
     mean_return: torch.Tensor         # count-weighted EMA of finished episodes' returns
     mean_length: torch.Tensor
+    cv: Optional[CVState] = None      # None without a central value
 
 
 def adam_init(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -115,30 +141,44 @@ class PPO:
     def __init__(self, env: TaskEnv, train_cfg: Dict[str, Any]):
         self.env = env
         p = train_cfg["params"]
-        if p.get("config", {}).get("central_value_config") and getattr(env, "num_states", 0) > 0:
-            raise NotImplementedError("the central value (asymmetric critic) is not ported (ROADMAP Queue A item 5)")
         if "rnn" in p.get("network", {}):
             raise NotImplementedError("the LSTM learner is not ported (ROADMAP Queue A item 6)")
         self.cfg = PPOConfig.from_train_cfg(train_cfg)
         self.train_cfg = train_cfg
         self.network = ActorCritic.from_train_config(train_cfg, env.num_obs, env.num_actions).to(env.device)
         self.device = env.device
+        cv_cfg = p.get("config", {}).get("central_value_config")
+        self.central_value = bool(cv_cfg) and getattr(env, "num_states", 0) > 0
+        if self.central_value:
+            self.cv_network = CentralValueNet.from_train_config(train_cfg, env.num_states).to(env.device)
+            self.cv_mini_epochs = int(cv_cfg.get("mini_epochs", self.cfg.mini_epochs))
+            self.cv_lr = float(cv_cfg.get("learning_rate", 1e-4))
         n_steps = self.cfg.horizon_length * env.num_envs
         if n_steps % self.cfg.minibatch_size:
             raise ValueError(f"batch {n_steps} not divisible by minibatch {self.cfg.minibatch_size}")
         self.num_minibatches = n_steps // self.cfg.minibatch_size
 
     # ------------------------------------------------------------------
-    def init(self, seed: int, params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
-        """A fresh state: the env reset from `seed`, the policy drawn from
-        `seed` (or `params`), fresh normalizers and Adam moments."""
+    def init(self, seed: int, params: Optional[Dict[str, torch.Tensor]] = None,
+             cv_params: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+        """A fresh state: the env reset from `seed`, the policy (and the
+        central value) drawn from `seed` (or `params`, `cv_params`), fresh
+        normalizers and Adam moments."""
         env_state = self.env.initial_state(seed=seed)
-        obs = self.env.observations(env_state)["obs"]
+        obs_dict = self.env.observations(env_state)
+        obs = obs_dict["obs"]
         if params is None:
             net = ActorCritic.from_train_config(self.train_cfg, self.env.num_obs, self.env.num_actions)
             params = {k: v.to(self.device) for k, v in net.reference_init_(seed).state_dict().items()}
         n, dev = self.env.num_envs, self.device
         zero = lambda *s: torch.zeros(s, device=dev)  # noqa: E731
+        cv = None
+        if self.central_value:
+            if cv_params is None:
+                net = CentralValueNet.from_train_config(self.train_cfg, self.env.num_states)
+                cv_params = {k: v.to(dev) for k, v in net.reference_init_(seed + 1).state_dict().items()}
+            cv = CVState(params=cv_params, opt_state=adam_init(cv_params), last_states=obs_dict["states"],
+                         stats=RunningStats.create((self.env.num_states,), device=dev))
         return TrainState(
             params=params, opt_state=adam_init(params),
             obs_stats=RunningStats.create((self.env.num_obs,), device=dev),
@@ -146,12 +186,18 @@ class PPO:
             lr=torch.tensor(self.cfg.learning_rate, device=dev),
             env_state=env_state, last_obs=obs,
             rng=torch.Generator(device=dev).manual_seed(seed + 1),
-            epoch=0, ep_return=zero(n), ep_length=zero(n), mean_return=zero(), mean_length=zero(),
+            epoch=0, ep_return=zero(n), ep_length=zero(n), mean_return=zero(), mean_length=zero(), cv=cv,
         )
 
     def apply(self, params: Dict[str, torch.Tensor], obs: torch.Tensor):
         """The policy on `params`: (mu, log_std, value normalized)."""
         return functional_call(self.network, params, (obs,))
+
+    def apply_cv(self, cv: CVState, states: torch.Tensor, params: Optional[Dict[str, torch.Tensor]] = None):
+        """The central value on `params` (default `cv.params`) of the raw
+        `states`, normalized by `cv.stats`: the value normalized."""
+        return functional_call(self.cv_network, cv.params if params is None else params,
+                               (self._norm_obs(cv.stats, states),))
 
     def _norm_obs(self, stats: RunningStats, obs):
         return stats.normalize(obs) if self.cfg.normalize_input else obs
@@ -176,12 +222,16 @@ class PPO:
         the policy noise and `reset_draws[t]` the env's reset draws of step t."""
         cfg = self.cfg
         env_state, obs = ts.env_state, ts.last_obs
+        states = ts.cv.last_states if ts.cv is not None else None
         ep_ret, ep_len, m_ret, m_len = ts.ep_return, ts.ep_length, ts.mean_return, ts.mean_length
         keys = ("obs", "action", "logp", "value", "reward", "done", "mu", "log_std")
-        batch: Dict[str, list] = {k: [] for k in keys}
+        batch: Dict[str, list] = {k: [] for k in keys + (("states",) if self.central_value else ())}
         metrics: Dict[str, list] = {}
         for t in range(cfg.horizon_length):
             mu, log_std, value_n = self.apply(ts.params, self._norm_obs(ts.obs_stats, obs))
+            if self.central_value:
+                value_n = self.apply_cv(ts.cv, states)
+                batch["states"].append(states)
             eps = noise[t] if noise is not None else self._policy_noise(ts.rng, mu)
             action = mu + torch.exp(log_std) * eps
             logp = gaussian_logp(mu, log_std, action)
@@ -207,15 +257,20 @@ class PPO:
                 if k in extras:
                     metrics.setdefault(k, []).append(extras[k].to(torch.float32).mean())
             obs = obs_dict["obs"]
-        ts = dataclasses.replace(ts, env_state=env_state, last_obs=obs, ep_return=ep_ret, ep_length=ep_len,
-                                 mean_return=m_ret, mean_length=m_len)
+            states = obs_dict["states"] if self.central_value else None
+        cv = None if ts.cv is None else dataclasses.replace(ts.cv, last_states=states)
+        ts = dataclasses.replace(ts, env_state=env_state, last_obs=obs, cv=cv, ep_return=ep_ret,
+                                 ep_length=ep_len, mean_return=m_ret, mean_length=m_len)
         return ts, {k: torch.stack(v) for k, v in batch.items()}, {k: torch.stack(v) for k, v in metrics.items()}
 
     @torch.no_grad()
     def _gae(self, ts: TrainState, batch):
         """(advantages, returns), each (H, N)."""
         cfg = self.cfg
-        _, _, v_last_n = self.apply(ts.params, self._norm_obs(ts.obs_stats, ts.last_obs))
+        if self.central_value:
+            v_last_n = self.apply_cv(ts.cv, ts.cv.last_states)
+        else:
+            _, _, v_last_n = self.apply(ts.params, self._norm_obs(ts.obs_stats, ts.last_obs))
         v_next = ts.value_stats.denormalize(v_last_n) if cfg.normalize_value else v_last_n
         adv_next = torch.zeros_like(v_next)
         advs = torch.empty_like(batch["value"])
@@ -227,6 +282,14 @@ class PPO:
             v_next = batch["value"][t]
         return advs, advs + batch["value"]
 
+    def _value_loss(self, value_n, mb):
+        """The (clipped) value loss against the normalized returns."""
+        cfg = self.cfg
+        if cfg.clip_value:
+            v_clipped = mb["value_n"] + torch.clamp(value_n - mb["value_n"], -cfg.e_clip, cfg.e_clip)
+            return torch.maximum((value_n - mb["ret_n"]) ** 2, (v_clipped - mb["ret_n"]) ** 2).mean()
+        return ((value_n - mb["ret_n"]) ** 2).mean()
+
     def _loss(self, params, obs_stats: RunningStats, mb):
         cfg = self.cfg
         mu, log_std, value_n = self.apply(params, self._norm_obs(obs_stats, mb["obs"]))
@@ -235,11 +298,8 @@ class PPO:
         surr1 = mb["adv"] * ratio
         surr2 = mb["adv"] * torch.clamp(ratio, 1.0 - cfg.e_clip, 1.0 + cfg.e_clip)
         a_loss = -torch.minimum(surr1, surr2).mean()
-        if cfg.clip_value:
-            v_clipped = mb["value_n"] + torch.clamp(value_n - mb["value_n"], -cfg.e_clip, cfg.e_clip)
-            v_loss = torch.maximum((value_n - mb["ret_n"]) ** 2, (v_clipped - mb["ret_n"]) ** 2).mean()
-        else:
-            v_loss = ((value_n - mb["ret_n"]) ** 2).mean()
+        # with a central value the actor's value head is unused
+        v_loss = torch.zeros((), device=mu.device) if self.central_value else self._value_loss(value_n, mb)
         entropy = gaussian_entropy(log_std).mean()
         b_loss = (torch.clamp(mu - BOUNDS_SOFT, min=0.0) ** 2 + torch.clamp(mu + BOUNDS_SOFT, max=0.0) ** 2).sum(-1).mean()
         loss = a_loss + 0.5 * cfg.critic_coef * v_loss - cfg.entropy_coef * entropy + cfg.bounds_loss_coef * b_loss
@@ -263,9 +323,21 @@ class PPO:
             new_p[k], mu_s[k], nu_s[k] = p + update * -lr, mu, nu
         return new_p, {"mu": mu_s, "nu": nu_s, "count": count}
 
-    def _update(self, ts: TrainState, batch, advs, returns, perms: Optional[torch.Tensor] = None):
-        """`mini_epochs` passes of minibatch updates over the rollout.  `perms`
-        (mini_epochs, M, mb) replaces the minibatch permutations."""
+    @staticmethod
+    def _grads(loss_fn, params):
+        """d loss / d params by name; zeros for a parameter the loss does not use."""
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        out = loss_fn(leaves)
+        loss = out[0] if isinstance(out, tuple) else out
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return out, {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(leaves.items(), grads)}
+
+    def _update(self, ts: TrainState, batch, advs, returns, perms: Optional[torch.Tensor] = None,
+                cv_perms: Optional[torch.Tensor] = None):
+        """`mini_epochs` passes of minibatch updates over the rollout, then,
+        with a central value, `cv_mini_epochs` passes of its own.  `perms`
+        (mini_epochs, M, mb) and `cv_perms` (cv_mini_epochs, M, mb) replace
+        the minibatch permutations."""
         cfg = self.cfg
         H, N = batch["reward"].shape[:2]
         B = H * N
@@ -273,6 +345,9 @@ class PPO:
         flat["adv"], flat["ret"] = advs.reshape(B), returns.reshape(B)
         obs_stats = ts.obs_stats.update(flat["obs"]) if cfg.normalize_input else ts.obs_stats
         value_stats = ts.value_stats.update(flat["ret"]) if cfg.normalize_value else ts.value_stats
+        cv = ts.cv
+        if self.central_value and cfg.normalize_input:
+            cv = dataclasses.replace(cv, stats=cv.stats.update(flat["states"]))
         if cfg.normalize_advantage:
             a = flat["adv"]
             mean = a.mean()
@@ -291,9 +366,7 @@ class PPO:
             perm = perms[e] if perms is not None else self._minibatch_perm(ts.rng, B, M)
             for idx in perm:
                 mbd = {k: v[idx] for k, v in flat.items()}
-                leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-                loss, aux = self._loss(leaves, obs_stats, mbd)
-                grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+                (loss, aux), grads = self._grads(lambda p: self._loss(p, obs_stats, mbd), params)
                 with torch.no_grad():
                     params, opt = self._adam_step(params, grads, opt, lr)
                     if cfg.lr_schedule == "adaptive":  # rl_games' AdaptiveScheduler
@@ -305,6 +378,19 @@ class PPO:
                     logs[k].append(v.detach())
         ts = dataclasses.replace(ts, params=params, opt_state=opt, lr=lr, obs_stats=obs_stats,
                                  value_stats=value_stats, epoch=ts.epoch + 1)
+        if self.central_value:
+            cv_params, cv_opt, cv_losses = cv.params, cv.opt_state, []
+            for e in range(self.cv_mini_epochs):
+                perm = cv_perms[e] if cv_perms is not None else self._minibatch_perm(ts.rng, B, M)
+                for idx in perm:
+                    mbd = {k: flat[k][idx] for k in ("states", "value_n", "ret_n")}
+                    vl, grads = self._grads(
+                        lambda p: self._value_loss(self.apply_cv(cv, mbd["states"], params=p), mbd), cv_params)
+                    with torch.no_grad():
+                        cv_params, cv_opt = self._adam_step(cv_params, grads, cv_opt, self.cv_lr)
+                    cv_losses.append(vl.detach())
+            logs["v_loss"] = cv_losses
+            ts = dataclasses.replace(ts, cv=dataclasses.replace(cv, params=cv_params, opt_state=cv_opt))
         info = {k: torch.stack(v).mean() for k, v in logs.items()}
         info.update(lr=lr, mean_return=ts.mean_return, mean_length=ts.mean_length)
         return ts, info

@@ -8,7 +8,8 @@ control period of `substeps` substeps through one of three paths, which
   heightfield, with per-env friction or without;
 - "split": `fused_split.split_substep`, a contacts kernel and a dynamics
   kernel per substep (B2 + B3), for scenes with pairs, tendons or
-  `no_ground` within the split tables' caps;
+  `no_ground` within the split tables' caps, with or without a per-body
+  external wrench (`Control.body_wrench`, B2's wrench mode);
 - None: the plain `_substep` loop below.
 A CUDA state on a kernel path launches the kernels; a CPU state runs their
 plain version, which is the `_substep` loop.
@@ -53,7 +54,10 @@ _MAX_ROOT_LINVEL = 1000.0
 @dataclass
 class Control:
     """Per-step actuation, held constant across substeps; arrays broadcast
-    against (N, nd).  `body_wrench` (N, nb, 6) is not ported and must be None."""
+    against (N, nd).  `body_wrench` (N, nb, 6) or None: an external wrench on
+    each body, world frame, [moment, force] about the body origin, added to
+    f_ext after the contacts (the plain loop and the split pair; B1 has no
+    wrench mode yet)."""
 
     pos_target: torch.Tensor
     vel_target: torch.Tensor
@@ -225,13 +229,17 @@ def _substep(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip_p, h: 
     """One substep on raw arrays.
 
     Returns (q_new, qd_new, dof_force, contact_force, contact_torque, slip_g,
-    slip_p, joint_wrench); joint_wrench is None without sensors.
+    slip_p, joint_wrench); joint_wrench is None without sensors.  The contact
+    torque is the moment of the contacts alone, without `ctrl.body_wrench`.
     """
     kin = kinematics.fk(model, q, qd)
     f_ext, body_cf, slip_g, slip_p = _contacts(model, terrain, kin, slip_g, slip_p, h)
+    contact_torque = f_ext[..., :3]
+    if ctrl.body_wrench is not None:
+        f_ext = f_ext + ctrl.body_wrench
     q_new, qd_new, tau_dof, joint_wrench = _dynamics(model, kin, q, qd, ctrl, f_ext, h)
     # contact, dof and sensor forces are those of the last substep (PhysX CC_LAST_SUBSTEP)
-    return q_new, qd_new, tau_dof, body_cf, f_ext[..., :3], slip_g, slip_p, joint_wrench
+    return q_new, qd_new, tau_dof, body_cf, contact_torque, slip_g, slip_p, joint_wrench
 
 
 def _substeps_plain(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip_p, h: float, substeps: int):
@@ -249,7 +257,8 @@ def _check_supported(model: SimModel, terrain, ctrl: Control, kind: Optional[str
     card a scene that does not go to B1 (`kind` "split", or None: over the
     kernels' caps, or per-env leaves B1 does not take) raises instead of
     quietly running the plain loop there.  The split pair has no sensor
-    output on either device."""
+    output on either device, and B1 no body-wrench input (body wrenches run
+    on the split pair and in the plain loop)."""
     per_env_friction = model.geom_friction.ndim == 2
     off_b1 = device_type != "cpu" and kind != "mono"
     unsupported = {
@@ -263,7 +272,7 @@ def _check_supported(model: SimModel, terrain, ctrl: Control, kind: Optional[str
         "gravity compensation": model.body_gravcomp is not None,
         "force sensors off B1": off_b1 and model.sensor_body,
         "force sensors on the split pair": kind == "split" and model.sensor_body,
-        "body wrenches": ctrl.body_wrench is not None,
+        "body wrenches on B1": kind == "mono" and ctrl.body_wrench is not None,
     }
     missing = [k for k, v in unsupported.items() if v]
     if missing:
@@ -331,8 +340,10 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
     elif kind == "split":
         from isaacgymenv_tpu_torch.physics import fused_split as split_mod
 
+        bw = None if ctrl.body_wrench is None else ctrl.body_wrench.expand(n, model.nb, 6)
         q, qd, dof_force, cf, ct, slip_g, slip_p = split_mod.split_substep(
-            split_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, slip_p, h, substeps
+            split_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, slip_p, h, substeps,
+            body_wrench=bw,
         )
         jw = None
     else:

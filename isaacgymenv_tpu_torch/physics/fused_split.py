@@ -15,6 +15,11 @@ through `launch_contacts` and `launch_dynamics`, which count their launches
 in `.launches` and raise when a launch fails; a CPU state runs
 `split_substep_plain`, the `engine._substep` loop.  `contacts_plain` and
 `dynamics_plain` are the plain versions of each kernel alone.
+
+B2's wrench mode (`body_wrench=`, JAX `wrench_mode`): an external wrench
+per body (N, nb, 6), world frame, [moment, force] about the body origin,
+held across the substeps, which B2 adds to f_ext after the contacts; the
+contact torque it writes stays the contacts' moment alone.
 """
 
 from __future__ import annotations
@@ -144,19 +149,23 @@ def tables_for(model: SimModel, device) -> SplitTables:
 # ------------------------------------------------------------ plain versions
 
 def split_substep_plain(tables: SplitTables, q, qd, pos_target, vel_target, effort, slip_g, slip_p,
-                        h: float, substeps: int):
+                        h: float, substeps: int, body_wrench=None):
     """The kernel pair's plain version: `engine._substep` looped `substeps` times.
 
     Returns (q, qd, dof_force, contact_force, contact_torque, slip_g, slip_p)."""
-    ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
+    ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort, body_wrench=body_wrench)
     return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, slip_p, h, substeps)[:7]
 
 
-def contacts_plain(tables: SplitTables, q, qd, slip_g, slip_p, h: float):
-    """B2's plain version: (f_ext (N, nb, 6), contact_force, contact_torque, slip_g, slip_p)."""
+def contacts_plain(tables: SplitTables, q, qd, slip_g, slip_p, h: float, body_wrench=None):
+    """B2's plain version: (f_ext (N, nb, 6), contact_force, contact_torque, slip_g, slip_p);
+    `body_wrench` (N, nb, 6) is added to f_ext and not to the contact torque."""
     model = tables.model
     f_ext, cf, slip_g, slip_p = engine._contacts(model, None, kinematics.fk(model, q, qd), slip_g, slip_p, h)
-    return f_ext, cf, f_ext[..., :3], slip_g, slip_p
+    ct = f_ext[..., :3]
+    if body_wrench is not None:
+        f_ext = f_ext + body_wrench
+    return f_ext, cf, ct, slip_g, slip_p
 
 
 def dynamics_plain(tables: SplitTables, q, qd, pos_target, vel_target, effort, f_ext, h: float):
@@ -168,18 +177,20 @@ def dynamics_plain(tables: SplitTables, q, qd, pos_target, vel_target, effort, f
 
 # ------------------------------------------------------------ the kernels
 
-def launch_contacts(tables: SplitTables, qT, qdT, slip_gT, slip_pT, fext, cf, ct, h: float, counts=None) -> None:
+def launch_contacts(tables: SplitTables, qT, qdT, slip_gT, slip_pT, fext, cf, ct, h: float, counts=None,
+                    bwT=None) -> None:
     """One launch of B2 on env-minor CUDA tensors: q (nq, N), qd (nv, N),
     slip_g (3 ng, N) or None for a `no_ground` scene, slip_p (3 n_pairs, N)
     or None without pairs, both updated in place; writes fext (6 nb, N), cf
     and ct (3 nb, N), and, when given, counts (nb, N): the live contacts
-    loading each body, as the kernel counted them in its first pass."""
+    loading each body, as the kernel counted them in its first pass.  bwT
+    (6 nb, N) or None: the body wrenches (wrench mode), added to fext."""
     if qT.device.type != "cuda":
         raise ValueError(f"launch_contacts: the kernel needs CUDA tensors, got {qT.device}")
     with torch.cuda.device(qT.device):
         err = _library().split_contacts_launch(
             ptr(tables.table), ptr(tables.pint), ptr(tables.pflt), ptr(qT), ptr(qdT),
-            ptr(slip_gT), ptr(slip_pT), ptr(fext), ptr(cf), ptr(ct), ptr(counts),
+            ptr(slip_gT), ptr(slip_pT), ptr(fext), ptr(cf), ptr(ct), ptr(counts), ptr(bwT),
             qT.shape[1], float(h), float(h * h), stream(qT.device),
         )
     if err != 0:
@@ -208,12 +219,14 @@ launch_dynamics.launches = 0
 
 
 def split_substep(tables: SplitTables, q, qd, pos_target, vel_target, effort, slip_g, slip_p,
-                  h: float, substeps: int):
+                  h: float, substeps: int, body_wrench=None):
     """All `substeps` substeps of one control step; same outputs as
-    `split_substep_plain`.  A CUDA `q` launches B2 and B3 once per substep;
-    a CPU `q` runs the plain version."""
+    `split_substep_plain`.  A CUDA `q` launches B2 and B3 once per substep
+    (B2 in its wrench mode when `body_wrench` (N, nb, 6) is given); a CPU `q`
+    runs the plain version."""
     if q.device.type == "cpu":
-        return split_substep_plain(tables, q, qd, pos_target, vel_target, effort, slip_g, slip_p, h, substeps)
+        return split_substep_plain(tables, q, qd, pos_target, vel_target, effort, slip_g, slip_p, h, substeps,
+                                   body_wrench)
     if q.device.type != "cuda":
         raise ValueError(f"split_substep: unsupported device {q.device}")
     model = tables.model
@@ -230,14 +243,17 @@ def split_substep(tables: SplitTables, q, qd, pos_target, vel_target, effort, sl
         check("slip_g", slip_g, (n, model.ng, 3))
     if model.n_pairs:
         check("slip_p", slip_p, (n, model.n_pairs, 3))
+    if body_wrench is not None:
+        check("body_wrench", body_wrench, (n, model.nb, 6))
 
     qT, qdT, tgtT, vtgT, effT = (to_minor(t, n) for t in (q, qd, pos_target, vel_target, effort))
     slip_gT = to_minor(slip_g, n) if ground else None
     slip_pT = to_minor(slip_p, n) if model.n_pairs else None
+    bwT = None if body_wrench is None else to_minor(body_wrench, n)
     empty = lambda k: torch.empty((k, n), dtype=torch.float32, device=dev)  # noqa: E731
     fext, cf, ct, dof_force = empty(6 * model.nb), empty(3 * model.nb), empty(3 * model.nb), empty(model.nd)
     for _ in range(substeps):
-        launch_contacts(tables, qT, qdT, slip_gT, slip_pT, fext, cf, ct, h)
+        launch_contacts(tables, qT, qdT, slip_gT, slip_pT, fext, cf, ct, h, bwT=bwT)
         launch_dynamics(tables, qT, qdT, tgtT, vtgT, effT, fext, dof_force, h)
     return (
         from_minor(qT, n, model.nq),
@@ -253,7 +269,7 @@ def split_substep(tables: SplitTables, q, qd, pos_target, vel_target, effort, sl
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(fused.build_library(SOURCE)[0])
-    lib.split_contacts_launch.argtypes = [ctypes.c_void_p] * 11 + [
+    lib.split_contacts_launch.argtypes = [ctypes.c_void_p] * 12 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     lib.split_dynamics_launch.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]

@@ -8,7 +8,10 @@ and cfg/train/<T>PPO.yaml (or `train=<name>`), `num_envs=N`,
 `checkpoint=<path>` to resume, `sigma=<float>` for the policy's action std,
 `sim_device=cuda|cpu` (default cuda; without CUDA it raises unless cpu is
 asked for), and dotted overrides: `train.params.config.X=...` for the train
-config, `env.X=...` or `task.env.X=...` for the task config.
+config, `env.X=...` or `task.env.X=...` for the task config.  A train config
+with a `central_value_config` (`task=ShadowHandOpenAI_FF`, through
+ShadowHandOpenAI_FFPPO -> ShadowHandPPOAsymm) trains the asymmetric critic
+on the env's `states` beside the policy.
 
 It writes `runs/<experiment>/nn/<experiment>.ckpt` at the end,
 `last_<experiment>.ckpt` every `save_frequency` epochs, a slim

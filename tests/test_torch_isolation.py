@@ -55,6 +55,8 @@ def test_make_without_device_needs_cuda():
 @pytest.mark.parametrize("kind,name", [
     ("task", "Anymal"), ("train", "AnymalPPO"), ("task", "ShadowHand"), ("train", "ShadowHandPPO"),
     ("task", "AnymalTerrain"), ("train", "AnymalTerrainPPO"), ("task", "Ant"), ("train", "AntPPO"),
+    ("task", "ShadowHandOpenAI_LSTM"), ("task", "ShadowHandOpenAI_FF"), ("train", "ShadowHandPPOAsymm"),
+    ("train", "ShadowHandOpenAI_FFPPO"),
 ])
 def test_cfg_copy_parses_like_the_jax_package(kind, name):
     ours = port_config.load_yaml(os.path.join(port_config.CFG_ROOT, kind, f"{name}.yaml"))

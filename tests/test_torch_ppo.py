@@ -4,10 +4,15 @@ package on the CPU.
 The learner is held to JAX's `PPO` on fixed batches: the Gaussian
 functions, GAE, and one `_update` (2 mini-epochs of 2 minibatches of 16)
 from a state carried across (`interop.train_state_from_jax`) with JAX's own
-minibatch permutations injected.  The JAX learner is built on an object
-that only carries the env's sizes: no JAX env is built here.  The CLI runs
-the port alone: Ant at 8 envs on the CPU for 2 epochs, then a resume from
-the checkpoint it wrote.
+minibatch permutations injected; and the same for the asymmetric
+actor-critic of ShadowHandOpenAI_FF (obs 42, states 211): the central value
+network, GAE on its values, and one `_update` with its own 2 mini-epochs
+and permutations, from a state whose Adam moments (both networks') JAX's
+first update made.  The JAX learner is built on an object that only
+carries the env's sizes: no JAX env is built here.  The CLI runs the port
+alone: Ant at 8 envs on the CPU for 2 epochs, then a resume from the
+checkpoint it wrote; ShadowHandOpenAI_FF at 8 envs for one epoch, then a
+resume.
 
 Tolerances (rtol / atol), fp32 throughout:
 - the Gaussian functions 1e-6 / 1e-5, GAE 1e-6 / 1e-5: the same
@@ -16,7 +21,8 @@ Tolerances (rtol / atol), fp32 throughout:
   lr each; an element whose gradient is near zero moves by
   lr * g / (|g| + eps), sensitive to the last bits of g), the learning
   rate after the adaptive steps 1e-6, the losses and kl 1e-4 / 1e-6, the
-  normalizers 1e-5 / 1e-6.
+  normalizers 1e-5 / 1e-6; the central value's parameters as the policy's,
+  its forward 1e-5 / 1e-5 (the same fp32 matmuls).
 """
 
 import dataclasses
@@ -108,6 +114,94 @@ def learners():
     return jagent, jts, batch, agent, ts, tbatch
 
 
+OBS_SH, ACT_SH, STATES_SH = 42, 20, 211  # ShadowHandOpenAI_FF
+
+
+class _SizesCV:
+    """The env sizes JAX's `PPO` reads, with the asymmetric states."""
+    num_envs, num_obs, num_actions, num_states = N, OBS_SH, ACT_SH, STATES_SH
+
+
+def _cv_train_cfg():
+    cfg = config.load_train_config("ShadowHandOpenAI_FF")
+    cfg["params"]["config"].update(horizon_length=H, minibatch_size=16, mini_epochs=2, learning_rate=3e-3,
+                                   kl_threshold=2e-4)
+    cfg["params"]["config"]["central_value_config"].update(mini_epochs=2, learning_rate=3e-3)
+    return cfg
+
+
+def _perms(key, mini_epochs, B, M):
+    """JAX's minibatch permutations of its actor update: per mini-epoch,
+    key, k_perm = split(key); permutation(k_perm, B).  Returns (key, perms)."""
+    perms = []
+    for _ in range(mini_epochs):
+        key, k_perm = jax.random.split(key)
+        perms.append(np.asarray(jax.random.permutation(k_perm, B)).reshape(M, B // M))
+    return key, np.stack(perms)
+
+
+@pytest.fixture(scope="module")
+def cv_learners():
+    """JAX's asymmetric learner and a JAX state after one JAX `_update`
+    (numpy-seeded policy and central value, normalizers fitted to a batch;
+    the update gives both Adam states their moments), the compiled update,
+    a fixed rollout batch with the central value's values, and the port's
+    learner on ShadowHandOpenAI_FF at N envs with the state carried across."""
+    cfg = _cv_train_cfg()
+    jagent = JaxPPO(_SizesCV(), cfg)
+    assert jagent.central_value and jagent.cv_mini_epochs == 2
+    rng = np.random.default_rng(30)
+    seeded = lambda tree, s: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: (s * rng.normal(size=a.shape)).astype(np.float32), tree)
+    params = seeded(jax.eval_shape(jagent.network.init, jax.random.PRNGKey(0), jnp.zeros((1, OBS_SH))), 0.1)
+    params["params"]["log_std"] = (0.2 * rng.normal(size=ACT_SH) - 0.7).astype(np.float32)
+    cv_params = seeded(jax.eval_shape(jagent.cv_network.init, jax.random.PRNGKey(0), jnp.zeros((1, STATES_SH))), 0.05)
+    f32 = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
+    obs_stats = JaxRunningStats.create((OBS_SH,)).update(jnp.asarray(f32(64, OBS_SH) * 2.0 + 0.5))
+    states_stats = JaxRunningStats.create((STATES_SH,)).update(jnp.asarray(f32(64, STATES_SH) * 3.0 - 0.5))
+    value_stats = JaxRunningStats.create(()).update(jnp.asarray(f32(64) * 3.0 + 1.0))
+    jts = JaxTrainState(
+        params=params, opt_state=jagent.tx.init(params), obs_stats=obs_stats, value_stats=value_stats,
+        lr=jnp.asarray(3e-3, jnp.float32), env_state=None, last_obs=jnp.asarray(f32(N, OBS_SH) * 2.0),
+        key=jax.random.PRNGKey(31), epoch=jnp.asarray(0, jnp.int32), ep_return=jnp.zeros(N),
+        ep_length=jnp.zeros(N), mean_return=jnp.zeros(()), mean_length=jnp.zeros(()),
+        cv_params=cv_params, cv_opt_state=jagent.cv_tx.init(cv_params), states_stats=states_stats,
+        last_states=jnp.asarray(f32(N, STATES_SH) * 3.0),
+    )
+
+    def rollout_batch(params, cv_params, obs, states, eps):
+        mu, log_std, _ = jagent.network.apply(params, obs_stats.normalize(obs))
+        action = mu + jnp.exp(log_std) * eps
+        value_n = jagent.cv_network.apply(cv_params, states_stats.normalize(states))
+        return {"obs": obs, "states": states, "action": action, "mu": mu, "log_std": log_std,
+                "logp": jax_networks.gaussian_logp(mu, log_std, action), "value": value_stats.denormalize(value_n)}
+
+    inputs = (jnp.asarray(f32(H, N, OBS_SH) * 2.0), jnp.asarray(f32(H, N, STATES_SH) * 3.0),
+              jnp.asarray(f32(H, N, ACT_SH)))
+    rollout = _jax_compiled(rollout_batch, params, cv_params, *inputs)
+    outcome = {"reward": jnp.asarray(f32(H, N)), "done": jnp.asarray(rng.random((H, N)) < 0.2)}
+    batch = {**rollout(params, cv_params, *inputs), **outcome}
+    jgae = _jax_compiled(jagent._gae, jts, batch)
+    advs, returns = jgae(jts, batch)
+    jupdate = _jax_compiled(jagent._update, jts, batch, advs, returns)
+    jts, _ = jupdate(jts, batch, advs, returns)  # the Adam moments of a first update
+    batch = {**rollout(jts.params, jts.cv_params, *inputs), **outcome}  # on-policy for the state it now holds
+
+    agent = PPO(isaacgymenv_tpu_torch.make(task="ShadowHandOpenAI_FF", num_envs=N, device="cpu"), cfg)
+    host = jax.device_get(jts)
+    stats = lambda s: (s.mean, s.var, s.count)  # noqa: E731
+    adam = host.opt_state[1].inner_state[0]      # clip, inject_hyperparams(adam): (scale_by_adam, lr)
+    cv_adam = host.cv_opt_state[1][0]            # clip, adam: (scale_by_adam, lr)
+    ts = interop.train_state_from_jax(
+        agent, host.params, stats(host.obs_stats), stats(host.value_stats), host.lr,
+        adam=(adam.mu, adam.nu, adam.count), cv_params_np=host.cv_params,
+        cv_adam=(cv_adam.mu, cv_adam.nu, cv_adam.count), states_stats=stats(host.states_stats))
+    ts = dataclasses.replace(ts, last_obs=torch.tensor(host.last_obs),
+                             cv=dataclasses.replace(ts.cv, last_states=torch.tensor(host.last_states)))
+    tbatch = {k: torch.tensor(np.asarray(v)) for k, v in batch.items()}
+    return jagent, jts, batch, jgae, jupdate, agent, ts, tbatch
+
+
 def test_gaussian_functions_match_jax():
     rng = np.random.default_rng(1)
     mu0, mu1, a = (rng.normal(size=(N, ACT)).astype(np.float32) for _ in range(3))
@@ -156,6 +250,79 @@ def test_update_from_carried_state_matches_jax(learners):
         for f in ("mean", "var", "count"):
             _close(getattr(getattr(got_ts, name), f), getattr(getattr(want_ts, name), f), 1e-5, 1e-6, f"{name}.{f}")
     assert got_ts.epoch == 1 and int(got_ts.opt_state["count"]) == 4
+
+
+def test_central_value_forward_with_carried_weights(cv_learners):
+    jagent, jts, batch, _, _, agent, ts, _ = cv_learners
+    assert tuple(agent.cv_network.state_dict()["cv_dense.0.weight"].shape) == (512, STATES_SH)
+    states = np.asarray(batch["states"][0])
+    forward = jax.jit(jagent.cv_network.apply)
+    want = forward(jts.cv_params, states)
+    net = networks.CentralValueNet(STATES_SH, units=(512, 512, 256, 128), activation="elu")
+    net.load_state_dict(interop.central_value_from_jax(jax.device_get(jts.cv_params)))
+    with torch.no_grad():
+        _close(net(torch.tensor(states)), want, 1e-5, 1e-5, "value")
+    _close(agent.apply_cv(ts.cv, torch.tensor(states)),
+           forward(jts.cv_params, np.asarray(jts.states_stats.normalize(states))), 1e-5, 1e-5, "normalized")
+
+
+def test_gae_with_central_value_matches_jax(cv_learners):
+    _, jts, batch, jgae, _, agent, ts, tbatch = cv_learners
+    want_adv, want_ret = jgae(jts, batch)  # bootstrapped from the central value of the last states
+    adv, ret = agent._gae(ts, tbatch)
+    _close(adv, want_adv, 1e-6, 1e-5, "advantages")
+    _close(ret, want_ret, 1e-6, 1e-5, "returns")
+
+
+def test_update_with_central_value_matches_jax(cv_learners):
+    jagent, jts, batch, jgae, jupdate, agent, ts, tbatch = cv_learners
+    advs, returns = jgae(jts, batch)
+    want_ts, want = jupdate(jts, batch, advs, returns)
+    # the actor's permutations, then the central value's: key, k_cv = split(key);
+    # one permutation per cv mini-epoch from split(k_cv, cv_mini_epochs)
+    B, M = H * N, jagent.num_minibatches
+    key, perms = _perms(jts.key, jagent.cfg.mini_epochs, B, M)
+    cv_perms = np.stack([np.asarray(jax.random.permutation(k, B)).reshape(M, B // M)
+                         for k in jax.random.split(jax.random.split(key)[1], jagent.cv_mini_epochs)])
+    got_ts, got = agent._update(ts, tbatch, torch.tensor(np.asarray(advs)), torch.tensor(np.asarray(returns)),
+                                perms=torch.tensor(perms), cv_perms=torch.tensor(cv_perms))
+
+    host = jax.device_get(want_ts)
+    for label, ref, ours, before in (
+        ("policy", interop.policy_from_jax(host.params), got_ts.params, ts.params),
+        ("central value", interop.central_value_from_jax(host.cv_params), got_ts.cv.params, ts.cv.params),
+    ):
+        for name, value in ours.items():
+            _close(value, ref[name], 1e-4, 2e-6, f"{label} {name}")
+        assert max(float((ours[k] - before[k]).abs().max()) for k in before) > 1e-3, f"the {label} must move"
+    # the actor's value head is unused: no gradient, zero moments, no move
+    for name in ("value.weight", "value.bias"):
+        assert torch.equal(got_ts.params[name], ts.params[name]) and not got_ts.opt_state["mu"][name].any()
+    _close(got["lr"], want["lr"], 1e-6, 0, "lr")
+    for k in ("loss", "kl", "a_loss", "v_loss", "entropy"):
+        _close(got[k], want[k], 1e-4, 1e-6, k)
+    for name, ours in (("obs_stats", got_ts.obs_stats), ("value_stats", got_ts.value_stats),
+                       ("states_stats", got_ts.cv.stats)):
+        for f in ("mean", "var", "count"):
+            _close(getattr(ours, f), getattr(getattr(want_ts, name), f), 1e-5, 1e-6, f"{name}.{f}")
+    assert int(got_ts.opt_state["count"]) == int(got_ts.cv.opt_state["count"]) == 8
+
+
+def test_slim_checkpoint_with_central_value_refills(cv_learners, tmp_path):
+    *_, agent, ts, _ = cv_learners
+    path = str(tmp_path / "best.ckpt")
+    checkpoint.save_train_state(ts, path, slim=True)
+    slim = checkpoint.load_train_state(agent, path)
+    assert slim.env_state is None and slim.last_obs is None and slim.cv.last_states is None
+    for what, ours, want in (("params", slim.cv.params, ts.cv.params), ("mu", slim.cv.opt_state["mu"],
+                             ts.cv.opt_state["mu"]), ("nu", slim.cv.opt_state["nu"], ts.cv.opt_state["nu"])):
+        assert all(torch.equal(ours[k], v) for k, v in want.items()), what
+    for f in ("mean", "var", "count"):
+        assert torch.equal(getattr(slim.cv.stats, f), getattr(ts.cv.stats, f)), f
+    full = checkpoint.refill_slim(agent, slim, seed=3)
+    assert full.env_state is not None and full.last_obs.shape == (N, 42)
+    assert full.cv.last_states.shape == (N, 211) and full.cv.params is slim.cv.params
+    assert torch.equal(full.cv.last_states, agent.env.observations(full.env_state)["states"])
 
 
 @pytest.mark.parametrize("value", ["3e-4", "[1, 2]", "True", "abc", "7"])
@@ -235,14 +402,45 @@ def test_learner_config_and_refusals():
     for f in dataclasses.fields(ours):
         assert getattr(ours, f.name) == getattr(ref, f.name), f.name
     assert (ours.horizon_length, ours.minibatch_size, ours.mini_epochs, ours.reward_scale) == (16, 32768, 4, 0.01)
-    # the learners and branches that wait name their ROADMAP item
+    # a central_value_config with an env that has states builds the asymmetric critic
     env = types.SimpleNamespace(num_envs=N, num_obs=OBS, num_actions=ACT, num_states=12, device=torch.device("cpu"))
     asym = {**cfg, "params": {**cfg["params"], "config": {**cfg["params"]["config"], "central_value_config": {}}}}
     asym["params"]["config"]["central_value_config"] = {"network": {"mlp": {"units": [64]}}}
-    with pytest.raises(NotImplementedError, match="central value.*Queue A item 5"):
+    with pytest.raises(ValueError, match="not divisible"):
         PPO(env, asym)
+    asym["params"]["config"].update(horizon_length=4, minibatch_size=16)
+    cv = PPO(env, asym)
+    assert cv.central_value and cv.cv_mini_epochs == 4 and cv.cv_lr == 1e-4
+    assert [tuple(v.shape) for v in cv.cv_network.state_dict().values()] == [(64, 12), (64,), (1, 64), (1,)]
+    assert not PPO(types.SimpleNamespace(**{**vars(env), "num_states": 0}), asym).central_value
+    # the learners that wait name their ROADMAP item
     lstm = {**cfg, "params": {**cfg["params"], "network": {**cfg["params"]["network"], "rnn": {"units": 64}}}}
     with pytest.raises(NotImplementedError, match="LSTM.*Queue A item 6"):
         PPO(env, lstm)
     with pytest.raises(ValueError, match="not divisible"):
         PPO(env, cfg)  # 16 x 8 envs against minibatches of 32768
+
+
+def test_cli_trains_shadow_hand_openai_with_central_value(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    args = ["task=ShadowHandOpenAI_FF", "sim_device=cpu", "num_envs=8", "experiment=sh", "seed=4",
+            "train.params.config.horizon_length=2", "train.params.config.minibatch_size=8",
+            "train.params.config.mini_epochs=2", "train.params.config.central_value_config.mini_epochs=2"]
+    ts = train.main(args + ["max_iterations=1"])
+    assert ts.epoch == 1 and ts.last_obs.shape == (8, 42) and ts.cv.last_states.shape == (8, 211)
+    path = tmp_path / "runs" / "sh" / "nn" / "sh.ckpt"
+    saved = torch.load(path, weights_only=True)["state"]
+    assert all(torch.equal(saved["cv"]["params"][k], v) for k, v in ts.cv.params.items())
+    assert saved["cv"]["stats"]["mean"].shape == (211,) and int(saved["cv"]["opt_state"]["count"]) == 4
+    rows = (tmp_path / "runs" / "sh" / "summaries" / "metrics.csv").read_text().splitlines()
+    vals = {r.split(",")[1]: float(r.split(",")[2]) for r in rows}
+    assert all(np.isfinite(vals[k]) for k in ("loss", "a_loss", "v_loss", "kl")) and vals["v_loss"] > 0
+    resumed = train.main(args + ["max_iterations=1", f"checkpoint={path}"])
+    assert resumed.epoch == 2 and int(resumed.cv.opt_state["count"]) == 8
+    # a checkpoint with a central value does not load into an agent without one
+    cfg = config.load_train_config("ShadowHandOpenAI_FF")
+    cfg["params"]["config"].update(horizon_length=4, minibatch_size=16)
+    del cfg["params"]["config"]["central_value_config"]
+    plain = PPO(isaacgymenv_tpu_torch.make(task="ShadowHandOpenAI_FF", num_envs=8, device="cpu"), cfg)
+    with pytest.raises(ValueError, match="central value"):
+        checkpoint.load_train_state(plain, str(path))

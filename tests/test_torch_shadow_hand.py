@@ -3,9 +3,12 @@
 The JAX ShadowHand is built once, in a module-scoped fixture; its physics
 runs the XLA path (`engine.step` on the CPU backend), which
 tests/test_fused_split.py holds the Pallas split pair against, compiled at
-XLA optimization level 0 once, as one substep chained (tests/jax_reference.py);
-the JAX env step is compiled with that chain in place of its physics and
-with the draws it makes from its state's key.  The port runs its split kernels' plain version
+XLA optimization level 0 once, as one substep chained (tests/jax_reference.py),
+with a body wrench (zero where the control has none: f_ext + 0, the same
+numbers); the JAX env step is compiled with that chain in place of its
+physics and with the draws it makes from its state's key.  The
+ShadowHandOpenAI_FF env of the JAX package (openai obs, asymmetric states,
+random object forces) reuses that model: only its task logic is new.  The port runs its split kernels' plain version
 (`split_substep_plain`, the `engine._substep` loop).  States are seeded with
 numpy, with the cube resting on the palm so that pair contacts are active;
 reset and goal draws repeat the JAX package's key splits and are handed to
@@ -21,12 +24,15 @@ Tolerances (rtol / atol), fp32 throughout:
   slip_p 2e-3 / 1e-5; body_pos as q;
 - env steps: obs 2e-3 / 5e-3, as the Anymal slice's (the observation holds
   10 x the dof force and the fingertip contact wrench, clipped at 5; the
-  measured error is under 1e-5), rew 1e-3 / 1e-3 (1 / (rot_dist + 0.1)
-  amplifies a rotation error up to 100x), done and time_outs exact;
+  measured error is under 1e-5), and so the openai obs and the 211-wide
+  states, rew 1e-3 / 1e-3 (1 / (rot_dist + 0.1) amplifies a rotation error
+  up to 100x), done and time_outs exact; the object force (rb_force) 1e-6 /
+  1e-7: a decay factor or a draw times the mass, elementwise;
 - the policy 1e-5: the same fp32 matmuls.
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +54,7 @@ from tests.jax_reference import env_step, substep_chain  # noqa: E402
 import isaacgymenv_tpu_torch  # noqa: E402
 from isaacgymenv_tpu_torch import interop  # noqa: E402
 from isaacgymenv_tpu_torch.learning.networks import ActorCritic  # noqa: E402
+from isaacgymenv_tpu_torch.ops import maths  # noqa: E402
 from isaacgymenv_tpu_torch.physics import contact, engine, fused_split, kinematics, types  # noqa: E402
 from isaacgymenv_tpu_torch.utils.config import load_train_config  # noqa: E402
 
@@ -64,9 +71,32 @@ def envs():
 
 @pytest.fixture(scope="module")
 def jax_physics(envs):
-    """The JAX engine.step of the hand scene, one compiled substep chained."""
+    """The JAX engine.step of the hand scene, one compiled substep chained,
+    compiled with a body wrench: a control without one gets zeros."""
     jm = envs[0].model
-    return substep_chain(jm, None, jax_zero_state(jm, N), jax_engine.Control.zero(jm, N))
+    zero_wrench = jnp.zeros((N, jm.nb, 6))
+    run = substep_chain(jm, None, jax_zero_state(jm, N),
+                        jax_engine.Control.zero(jm, N).replace(body_wrench=zero_wrench))
+
+    def run_any(s, c, dt, substeps):
+        return run(s, c if c.body_wrench is not None else c.replace(body_wrench=zero_wrench), dt, substeps)
+
+    return run_any
+
+
+# what JaxShadowHand._build_model sets: the OpenAI env reuses the built model
+_MODEL_ATTRS = ("model", "_info", "fingertip_bodies", "object_actor", "object_body", "actuated", "dof_lower",
+                "dof_upper", "object_init", "object_mass")
+
+
+@pytest.fixture(scope="module")
+def openai_envs(envs):
+    """ShadowHandOpenAI_FF in both packages; the JAX one on the module's model."""
+    jax_env = envs[0]
+    build = lambda self, cfg: self.__dict__.update({k: getattr(jax_env, k) for k in _MODEL_ATTRS})  # noqa: E731
+    with mock.patch.object(JaxShadowHand, "_build_model", build):
+        jenv = JaxShadowHand(jax_task_config("ShadowHandOpenAI_FF", num_envs=N))
+    return jenv, isaacgymenv_tpu_torch.make(task="ShadowHandOpenAI_FF", num_envs=N, device="cpu")
 
 
 def _close(got, want, rtol, atol, what=""):
@@ -208,6 +238,50 @@ def test_engine_step_matches_jax_xla_path(envs, jax_physics):
         _close(getattr(out, field), getattr(ref, field), rtol, atol, field)
 
 
+def _body_wrench(env, seed):
+    """(N, nb, 6) world [moment, force]: small on the hand's moving bodies,
+    a 0.5 N force and a 2e-3 N m moment on the cube, and 1 N m, 3 N on the
+    two fixed bodies at the root (no motion: welded to the world), where a
+    wrench leaking into the contact torque would show 20x the tolerance."""
+    rng = np.random.default_rng(seed)
+    m = env.model
+    w = rng.normal(size=(N, m.nb, 6)) * np.array([1e-3] * 3 + [1e-2] * 3)
+    w[:, env.object_body] = rng.normal(size=(N, 6)) * np.array([2e-3] * 3 + [0.5] * 3)
+    w[:, :2] = rng.choice([-1.0, 1.0], size=(N, 2, 6)) * np.array([1.0] * 3 + [3.0] * 3)
+    assert m.body_names[0] == "robot0:hand mount" and m.jtype[0] == m.jtype[1] == types.JT_FIXED
+    return w.astype(np.float32)
+
+
+def test_engine_step_with_body_wrench_matches_jax(envs, jax_physics):
+    jax_env, port_env = envs
+    q, qd, tgt, slip = _cube_on_palm(port_env, 10)
+    wrench = _body_wrench(port_env, 11)
+    jm, tm = jax_env.model, port_env.model
+    js0 = jax_zero_state(jm, N).replace(q=jnp.asarray(q), qd=jnp.asarray(qd), slip_p=jnp.asarray(slip))
+    jctrl = jax_engine.Control.zero(jm, N).replace(pos_target=jnp.asarray(tgt), body_wrench=jnp.asarray(wrench))
+    ref = jax_physics(js0, jctrl, jax_env.dt, 2)
+
+    ts0 = dataclasses.replace(
+        types.make_zero_state(tm, N), q=torch.tensor(q), qd=torch.tensor(qd), slip_p=torch.tensor(slip)
+    )
+    tctrl = dataclasses.replace(engine.Control.zero(tm, N), pos_target=torch.tensor(tgt),
+                                body_wrench=torch.tensor(wrench))
+    out = engine.step(tm, None, ts0, tctrl, jax_env.dt, 2)
+    plain = engine.step(tm, None, ts0, dataclasses.replace(tctrl, body_wrench=None), jax_env.dt, 2)
+
+    in_contact = (np.linalg.norm(np.asarray(ref.contact_force), axis=-1) > 0).any(-1)
+    assert in_contact.sum() >= N // 4, "the pair-contact path must be exercised"
+    qa = tm.q_adr[port_env.object_body]
+    assert float((out.q - plain.q)[:, qa:qa + 3].abs().max()) > 1e-4, "the wrench must move the cube"
+    assert float(out.contact_torque[:, :2].abs().max()) == 0.0, "no contact torque on the welded root"
+    for field, rtol, atol in (
+        ("q", 5e-4, 5e-4), ("qd", 2e-3, 1e-2), ("dof_force", 2e-3, 1e-2),
+        ("contact_force", 2e-3, 5e-2), ("contact_torque", 2e-3, 5e-2),
+        ("slip_p", 2e-3, 1e-5), ("body_pos", 5e-4, 5e-4),
+    ):
+        _close(getattr(out, field), getattr(ref, field), rtol, atol, field)
+
+
 def _jax_random_quat_draws(key, n):
     """The two angle draws of `ShadowHand._random_quat(key, n)`."""
     k0, k1 = jax.random.split(key)
@@ -287,6 +361,91 @@ def test_env_steps_match_jax_with_injected_draws(envs, jax_physics):
     assert resets[1][4:].all() and not resets[1][:4].any(), "the deferred reset of envs 4-7 at step 2"
 
 
+def _cube_rotations(n):
+    """(n, 4) xyzw: env e's cube turned by 90 deg x (e % 4) about z, then
+    90 deg about x for odd e; the cube rests on the palm as before (its
+    contact spheres are symmetric), and its frame, which the random forces
+    are drawn in, points elsewhere in each env."""
+    e = torch.arange(n)
+    a, b = e % 4 * torch.pi / 4, (e % 2) * torch.pi / 4
+    zero = torch.zeros(n)
+    qz = torch.stack([zero, zero, torch.sin(a), torch.cos(a)], -1)
+    qx = torch.stack([torch.sin(b), zero, zero, torch.cos(b)], -1)
+    return maths.quat_mul(qz, qx)
+
+
+def test_openai_env_steps_with_forces_and_states_match_jax(openai_envs, jax_physics):
+    jax_env, port_env = openai_envs
+    assert (jax_env.num_obs, jax_env.num_states, port_env.num_obs, port_env.num_states) == (42, 211, 42, 211)
+    assert port_env.force_scale == jax_env.force_scale == 1.0
+    q, qd, _, _ = _cube_on_palm(port_env, 12)
+    qd[:] = 0.0
+    jm, tm = jax_env.model, port_env.model
+    qa = jm.q_adr[jax_env.object_body]
+    q[:, qa + 3:qa + 7] = maths.quat_mul(torch.tensor(q[:, qa + 3:qa + 7]), _cube_rotations(N)).numpy()
+    key = jax.random.PRNGKey(13)
+    ts = jax_env._initial_ts(key)
+    # a force probability per env from 0.05 to 0.9, and a decaying force already on envs 0-3
+    ts["force_prob"] = jnp.linspace(0.05, 0.9, N)
+    rb = np.zeros((N, 3), np.float32)
+    rb[:4] = np.random.default_rng(14).normal(size=(4, 3)) * 0.07
+    ts["rb_force"] = jnp.asarray(rb)
+    progress = np.where(np.arange(N) >= 6, jax_env.max_episode_length - 2, 0).astype(np.int32)
+    # the forces turn with the object pose of the last refresh: the body caches
+    # of q, qd, as the port's forward gives them, go to both packages
+    tsim = engine.forward(tm, None, dataclasses.replace(types.make_zero_state(tm, N), q=torch.tensor(q),
+                                                        qd=torch.tensor(qd)))
+    caches = {f: jnp.asarray(getattr(tsim, f).numpy()) for f in ("body_pos", "body_quat", "body_linvel",
+                                                                   "body_angvel")}
+    sim = jax_zero_state(jm, N).replace(q=jnp.asarray(q), qd=jnp.asarray(qd), **caches)
+    jstate = jax.device_get(JaxEnvState(
+        sim=sim, progress=jnp.asarray(progress), reset=jnp.zeros(N, bool), rng=key, ts=ts,
+    ))
+    tstate = interop.env_state_from_jax({
+        "sim": {f.name: getattr(jstate.sim, f.name) for f in dataclasses.fields(jstate.sim)},
+        "progress": jstate.progress, "reset": jstate.reset, "ts": jstate.ts,
+    }, device="cpu")
+
+    rng = np.random.default_rng(15)
+    act = port_env.actuated
+    lo, hi = tm.dof_lower[act].numpy(), tm.dof_upper[act].numpy()
+    hold = (2.0 * q[:, list(tm.dof_q_adr)][:, act] - hi - lo) / (hi - lo)
+
+    def step_and_draws(st, a):
+        # _make_control: fold_in(rng, 41) for the goal, split(fold_in(rng, 43)) for the forces
+        k_f, k_g = jax.random.split(jax.random.fold_in(st.rng, 43))
+        draws = {"goal": _jax_random_quat_draws(jax.random.fold_in(st.rng, 41), N),
+                 "force_fire": jax.random.uniform(k_f, (N,)), "force": jax.random.normal(k_g, (N, 3))}
+        return jax_env.step(st, a), draws, _jax_reset_draws(jax.random.split(st.rng, 3)[1], jax_env)
+
+    jstep = env_step(step_and_draws, jax_physics, jstate, jnp.zeros((N, 20)))
+    torch_of = lambda d: {k: torch.tensor(np.asarray(v)) for k, v in d.items()}  # noqa: E731
+    fired, resets = np.zeros(N, bool), []
+    # the first obs dict of each package: obs and states without a step
+    _close(port_env.observations(tstate)["states"], jax_env.observations(jstate)["states"], 2e-3, 5e-3, "states")
+    for i in range(2):
+        actions = np.clip(hold + rng.uniform(-0.1, 0.1, size=(N, 20)), -1.0, 1.0).astype(np.float32)
+        prob = np.asarray(jstate.ts["force_prob"])
+        resets.append(np.asarray(jstate.reset).copy())
+        (jstate, jobs, jrew, jdone, jextras), step_draws, reset_draws = jstep(jstate, jnp.asarray(actions))
+        fired |= np.asarray(step_draws["force_fire"]) < prob
+        tstate, tobs, trew, tdone, textras = port_env.step(
+            tstate, torch.tensor(actions), reset_draws=torch_of(reset_draws), step_draws=torch_of(step_draws),
+        )
+        assert tobs["obs"].shape == (N, 42) and tobs["states"].shape == (N, 211)
+        _close(tobs["obs"], jobs["obs"], 2e-3, 5e-3, f"obs, step {i}")
+        _close(tobs["states"], jobs["states"], 2e-3, 5e-3, f"states, step {i}")
+        _close(trew, jrew, 1e-3, 1e-3, f"rew, step {i}")
+        np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone), f"done, step {i}")
+        np.testing.assert_array_equal(textras["time_outs"].numpy(), np.asarray(jextras["time_outs"]))
+        _close(tstate.ts["rb_force"], jstate.ts["rb_force"], 1e-6, 1e-7, f"rb_force, step {i}")
+        _close(tstate.ts["force_prob"], jstate.ts["force_prob"], 1e-6, 0, f"force_prob, step {i}")
+        cf = np.linalg.norm(np.asarray(jstate.sim.contact_force), axis=-1)
+        assert (cf > 0).any(-1).sum() >= N // 4, f"pair contacts at step {i}"
+    assert fired.any() and not fired.all(), "forces fire in some envs and decay in others"
+    assert resets[1][6:].all() and not resets[1][:6].any(), "envs 6-7 reset at step 2: force and probability redrawn"
+
+
 def test_policy_forward_with_carried_weights():
     rng = np.random.default_rng(8)
     units = tuple(load_train_config("ShadowHand")["params"]["network"]["mlp"]["units"])
@@ -328,8 +487,13 @@ def test_dispatch_rule(envs):
     ):
         with pytest.raises(NotImplementedError, match="not ported"):
             engine.step(bad, None, sim, ctrl, 0.01, 2)
-    with pytest.raises(NotImplementedError, match="forceScale"):
-        isaacgymenv_tpu_torch.make(task="ShadowHand", num_envs=N, device="cpu", **{"env.forceScale": 1.0})
+    for key, value in (("env.observationType", "full"), ("env.objectType", "egg")):
+        with pytest.raises(NotImplementedError, match="ported"):
+            isaacgymenv_tpu_torch.make(task="ShadowHand", num_envs=N, device="cpu", **{key: value})
+    # body wrenches run on the split pair and the plain loop; B1 has no wrench mode
+    wrench = dataclasses.replace(ctrl, body_wrench=torch.zeros(N, anymal.model.nb, 6))
+    with pytest.raises(NotImplementedError, match="body wrenches on B1"):
+        engine.step(anymal.model, None, anymal.initial_state().sim, wrench, 0.01, 2)
     if not torch.cuda.is_available():  # no device means "cuda", never a silent CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             isaacgymenv_tpu_torch.make(task="ShadowHand", num_envs=N)
@@ -353,3 +517,25 @@ def test_split_wrapper_runs_plain_version_on_cpu(envs):
         fused_split.split_substep(tables, q.to("meta"), *args[1:])
     with pytest.raises(ValueError, match="needs CUDA"):
         fused_split.launch_contacts(tables, q.t(), qd.t(), None, slip, None, None, None, 0.01)
+
+
+def test_split_wrapper_with_body_wrench_runs_plain_version_on_cpu(envs):
+    _, env = envs
+    m = env.model
+    q, qd, tgt, slip = (torch.tensor(a) for a in _cube_on_palm(env, 16))
+    wrench = torch.tensor(_body_wrench(env, 17))
+    zero = torch.zeros_like(tgt)
+    slip_g = torch.zeros(N, m.ng, 3)
+    tables = fused_split.tables_for(m, "cpu")
+    before = (fused_split.launch_contacts.launches, fused_split.launch_dynamics.launches)
+    args = (q, qd, tgt, zero, zero, slip_g, slip, 0.01, 2)
+    out = fused_split.split_substep(tables, *args, body_wrench=wrench)
+    ref = fused_split.split_substep_plain(tables, *args, body_wrench=wrench)
+    assert (fused_split.launch_contacts.launches, fused_split.launch_dynamics.launches) == before
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert not torch.equal(out[0], fused_split.split_substep(tables, *args)[0]), "the wrench is applied"
+    # B2's plain version alone: the wrench in f_ext, not in the contact torque
+    f_ext, cf, ct, _, _ = fused_split.contacts_plain(tables, q, qd, slip_g, slip, 0.01, body_wrench=wrench)
+    f_ext0, cf0, ct0, _, _ = fused_split.contacts_plain(tables, q, qd, slip_g, slip, 0.01)
+    assert torch.equal(f_ext, f_ext0 + wrench) and torch.equal(ct, ct0) and torch.equal(cf, cf0)
