@@ -74,8 +74,26 @@ Phases (each raises on failure; the script then exits non-zero):
    checkpoint for one more): finite losses and learning rate, B1 launched
    horizon_length times per epoch; rollout and update times, env-steps/s
    and the mean return as information;
-10. the `kernels` JSON line (B1 once per mode set: flat, terrain + friction,
-   sensors; B2 and B2 in wrench mode; B3), the card line, and the final ok line.
+10. the Quadcopter slice: B1 in its wrench mode against `fused_substep_plain`
+   at 8192 envs on the scene without geoms (every env in flight with
+   thrusts of 0-2 N along its rotors' axes and small wrenches on every
+   body): the contact force and torque exactly 0, a zero wrench bit for bit
+   equal to none; 100 acting steps with the [256, 256, 128] policy (B1 once
+   per step); the env step against the CPU at 128 envs (obs, reward, done,
+   q, the dof targets and thrusts); the training CLI (`task=Quadcopter`,
+   SMALL_TRAIN_EPOCHS epochs and a resumed one, B1 8 times per epoch);
+11. the BallBalance slice: B2 with the world anchors and B3 with the tray's
+   sensor output against `split_substep_plain` at 4096 envs from the ball
+   on the tray (the count witness at every one of the 4 substeps' starts),
+   each kernel alone against its plain version; B3's sensor output on
+   ShadowHand's model with six revolute finger bodies declared as sensor
+   bodies at 16384 envs (real wrenches, tests/test_fused.py's tolerance);
+   100 acting steps with the [128, 64, 32] policy (B2 and B3 each 4 times
+   per step); the env step against the CPU at 128 envs from the ball on the
+   tray; the training CLI (`task=BallBalance`, 64 + 64 launches per epoch);
+12. the `kernels` JSON line (B1 once per mode set: flat, terrain + friction,
+   sensors, wrench; B2, B2 in wrench mode, B2 with anchors; B3, B3 with its
+   sensor output), the card line, and the final ok line.
 """
 
 from __future__ import annotations
@@ -94,6 +112,8 @@ import torch
 
 N_ENVS = 4096          # Anymal (cfg/task/Anymal.yaml)
 HAND_ENVS = 16384      # ShadowHand (cfg/task/ShadowHand.yaml)
+QUAD_ENVS = 8192       # Quadcopter (cfg/task/Quadcopter.yaml)
+BALL_ENVS = 4096       # BallBalance (cfg/task/BallBalance.yaml)
 N_STEPS = 100
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, published
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores, published
@@ -187,24 +207,26 @@ def sensor_flops(model) -> int:
     return len(model.sensor_body) * (MV6 + 6) + one_dof * (12 + 1 + 12)
 
 
-def fused_substep_flops(model, n: int, substeps: int, terrain: bool = False) -> int:
+def fused_substep_flops(model, n: int, substeps: int, terrain: bool = False, wrench: bool = False) -> int:
     """fp32 operations that csrc/fused_substep.cu performs for one launch
-    (the sensor output when the model has sensors)."""
-    extra = TERRAIN_GROUND_EXTRA * model.ng if terrain else 0
+    (the sensor output when the model has sensors; in wrench mode one add
+    per body wrench entry and substep)."""
+    extra = (TERRAIN_GROUND_EXTRA * model.ng if terrain else 0) + (6 * model.nb if wrench else 0)
     return (sum(_stage_flops(model).values()) + extra) * substeps * n + sensor_flops(model) * n
 
 
-def fused_substep_bytes(model, n: int, terrain: bool = False, fric: bool = False) -> int:
+def fused_substep_bytes(model, n: int, terrain: bool = False, fric: bool = False, wrench: bool = False) -> int:
     """Bytes one launch of B1 must move: each input read once, each output
-    written once; the held ground (4 floats per geom) and the per-env
-    friction (1) when their modes are on, the sensor wrenches (6 per sensor)
-    when the model has sensors."""
+    written once; the held ground (4 floats per geom), the per-env friction
+    (1) and the body wrenches (6 per body) when their modes are on, the
+    sensor wrenches (6 per sensor) when the model has sensors."""
     return 4 * n * (
         2 * (model.nq + model.nv + 3 * model.ng)   # q, qd, slip in and out
         + 3 * model.nd                             # targets + effort in
         + model.nd + 6 * model.nb                  # dof_force, contact force + torque out
         + (4 * model.ng if terrain else 0)         # ground_h, ground_n in
         + (model.ng if fric else 0)                # geom_fric in
+        + (6 * model.nb if wrench else 0)          # body wrenches in
         + 6 * len(model.sensor_body)               # joint_wrench out
     )
 
@@ -215,16 +237,23 @@ PAIR_QUERY_FLOPS = 2 * MV3 + 3 + MM3 + 3 + 3 + MV3 + MV3 + 1   # c, R_s, p_s, d,
 PAIR_FORCE_FLOPS = 170                                            # lever .. accumulation
 
 
+# csrc/substep_common.cuh anchor_force: lever, w x lever, kp and kd, the
+# spring-damper force, its moment and the accumulation
+ANCHOR_FLOPS = MV3 + CROSS3 + 4 + 18 + CROSS3 + 6
+
+
 def split_contacts_flops(model, n: int, wrench: bool = False) -> int:
     """fp32 operations that one launch of B2 (split_contacts_kernel) performs:
-    FK, the ground passes unless `no_ground`, and two surface queries plus one
-    force evaluation per pair (box queries counted on their outside branch);
-    in wrench mode one add per body wrench entry (6 per body)."""
+    FK, the ground passes unless `no_ground`, two surface queries plus one
+    force evaluation per pair (box queries counted on their outside branch)
+    and the world anchors; in wrench mode one add per body wrench entry (6
+    per body)."""
     st = _stage_flops(model)
     pairs = sum(2 * (PAIR_QUERY_FLOPS + CLOSEST_FLOPS[model.surf_kind[s]]) + 3 + PAIR_FORCE_FLOPS
                 for s in model.pair_surf)
     ground = model.nb * 2 if model.no_ground else st["ground"]
-    return (st["fk"] + ground + pairs + (6 * model.nb if wrench else 0)) * n
+    anchors = ANCHOR_FLOPS * len(model.anchor_body)
+    return (st["fk"] + ground + pairs + anchors + (6 * model.nb if wrench else 0)) * n
 
 
 def split_contacts_bytes(tables, n: int, wrench: bool = False) -> int:
@@ -639,7 +668,9 @@ def phase_slice(task: str, n_envs: int, expected: dict, card: str, overrides=Non
 @torch.no_grad()
 def phase_slice_vs_plain(task: str, tols: dict, n: int = 128, steps: int = 2, seed_state=None) -> None:
     """The env step on the card (kernels) against the CPU (plain), same inputs.
-    `seed_state(env, n)` -> (q, qd) replaces the initial q and qd when given."""
+    `seed_state(env, n)` -> (q, qd) replaces the initial q and qd when given.
+    `tols` names the outputs held: obs, rew, done, q, contact_force, states
+    or an entry of the task state."""
     import isaacgymenv_tpu_torch
 
     envs = {d: isaacgymenv_tpu_torch.make(task, num_envs=n, device=d) for d in ("cuda", "cpu")}
@@ -665,8 +696,8 @@ def phase_slice_vs_plain(task: str, tols: dict, n: int = 128, steps: int = 2, se
                    "contact_force": state.sim.contact_force.cpu()}
         if "states" in obs:
             outs[d]["states"] = obs["states"].cpu()
-        if "rb_force" in state.ts:
-            outs[d]["rb_force"] = state.ts["rb_force"].cpu()
+        # the task-state entries held (the object force, the dof targets, the thrusts)
+        outs[d].update({k: state.ts[k].cpu() for k in tols if k in state.ts})
     contact = int((outs["cpu"]["contact_force"].abs().sum(-1) > 0).any(-1).sum())
     if "rb_force" in tols:
         forced = int((outs["cpu"]["rb_force"] != 0).any(-1).sum())
@@ -876,6 +907,7 @@ def ant_contact_state(env, n: int, seed: int):
 
 TRAIN_EPOCHS = 10       # Ant
 HAND_TRAIN_EPOCHS = 3   # ShadowHandOpenAI_FF
+SMALL_TRAIN_EPOCHS = 3  # Quadcopter, BallBalance
 
 
 def phase_train(card: str, task: str = "Ant", n_envs: int = N_ENVS, epochs: int = TRAIN_EPOCHS,
@@ -1152,21 +1184,28 @@ def check_wrench_mode(label: str, out, bw) -> float:
     return float((err / size.clamp(min=1e-30)).max())
 
 
-def phase_split_vs_plain(env, wrench: bool = False) -> dict:
-    """B2 + B3 against `split_substep_plain` at the slice's width, and each
-    kernel alone against its own plain version; timings and bounds.  With
-    `wrench`, every call carries the task-like body wrenches of `task_wrench`
-    (B2's wrench mode) and B3 alone is not repeated."""
+def phase_split_vs_plain(env, wrench: bool = False, state=cube_on_palm_state, sensor_tol=None,
+                         contacts_alone: bool = True, name: str = "") -> dict:
+    """B2 + B3 against `split_substep_plain` at the slice's width from
+    `state(env, n, seed)` -> (q, qd, pos_target, slip_p), and each kernel
+    alone against its own plain version; timings and bounds.  With `wrench`,
+    every call carries the task-like body wrenches of `task_wrench` (B2's
+    wrench mode) and B3 alone is not repeated.  A model with force sensors
+    has its sensor wrenches (B3's sensor output) held at `sensor_tol`;
+    without `contacts_alone`, B2 alone is not repeated.  `name` goes into
+    the labels."""
     from isaacgymenv_tpu_torch.physics import contact, engine, fused_split, kinematics
     from isaacgymenv_tpu_torch.physics.fused import from_minor, to_minor
 
     dev, model = env.device, env.model
     n, h = env.num_envs, env.dt / env.substeps
     tables = fused_split.tables_for(model, dev)
-    q, qd, tgt, slip_p = (t.to(dev) for t in cube_on_palm_state(env, n, seed=1))
+    q, qd, tgt, slip_p = (t.to(dev) for t in state(env, n, seed=1))
     bw = task_wrench(env, q, seed=5) if wrench else None
     b2 = "B2 (wrench mode)" if wrench else "B2"
-    label = f"{b2} + B3"
+    label = f"{b2} + B3{name}"
+    ns = len(model.sensor_body)
+    tols = {**SPLIT_TOLS, "joint_wrench": sensor_tol if ns else None}
     zero = torch.zeros_like(tgt)
     slip_g = torch.zeros((n, model.ng, 3), device=dev)
     ctl = (tgt, zero, zero)
@@ -1182,16 +1221,22 @@ def phase_split_vs_plain(env, wrench: bool = False) -> dict:
     body_pos, R_w, _, _, geom_pos, _ = engine._geom_world(model, kin)
     active = int(contact.pair_active(model, geom_pos, body_pos, R_w).any(-1).sum())
     out = fused_split.split_substep(tables, *args, body_wrench=bw)
-    # both one substep at a time (the same arithmetic as substeps=2), to
-    # read each one's state at the second substep's start
-    k1 = fused_split.split_substep(tables, q, qd, *ctl, slip_g, slip_p, h, 1, body_wrench=bw)
-    mid = fused_split.split_substep_plain(tables, q, qd, *ctl, slip_g, slip_p, h, 1, body_wrench=bw)
-    ref = fused_split.split_substep_plain(tables, mid[0], mid[1], *ctl, mid[5], mid[6], h, 1, body_wrench=bw)
-    # the plain second substep from the kernel's own state
-    ref_k = fused_split.split_substep_plain(tables, k1[0], k1[1], *ctl, k1[5], k1[6], h, 1, body_wrench=bw)
+    # both one substep at a time (the same arithmetic as `substeps` in one
+    # call), to read each one's state at every substep's start
+    k_states, p_states = [(q, qd, slip_g, slip_p)], [(q, qd, slip_g, slip_p)]
+    for _ in range(env.substeps - 1):
+        (kq, kqd, ksg, ksp), (pq, pqd, psg, psp) = k_states[-1], p_states[-1]
+        k = fused_split.split_substep(tables, kq, kqd, *ctl, ksg, ksp, h, 1, body_wrench=bw)
+        p = fused_split.split_substep_plain(tables, pq, pqd, *ctl, psg, psp, h, 1, body_wrench=bw)
+        k_states.append((k[0], k[1], k[5], k[6]))
+        p_states.append((p[0], p[1], p[5], p[6]))
+    kl, pl = k_states[-1], p_states[-1]
+    ref = fused_split.split_substep_plain(tables, pl[0], pl[1], *ctl, pl[2], pl[3], h, 1, body_wrench=bw)
+    # the plain last substep from the kernel's own state
+    ref_k = fused_split.split_substep_plain(tables, kl[0], kl[1], *ctl, kl[2], kl[3], h, 1, body_wrench=bw)
     if not all(torch.equal(a, b) for a, b in zip(out[:2], fused_split.split_substep(
-            tables, k1[0], k1[1], *ctl, k1[5], k1[6], h, 1, body_wrench=bw)[:2])):
-        raise AssertionError("split_substep: two substeps differ from two chained single substeps")
+            tables, kl[0], kl[1], *ctl, kl[2], kl[3], h, 1, body_wrench=bw)[:2])):
+        raise AssertionError("split_substep: its substeps differ from chained single substeps")
     if wrench:  # the wrench moves the cube: the kernel pair without it ends elsewhere
         qa = model.q_adr[env.object_body]
         moved = float((out[0] - fused_split.split_substep(tables, *args)[0])[:, qa:qa + 3].abs().max())
@@ -1200,38 +1245,43 @@ def phase_split_vs_plain(env, wrench: bool = False) -> dict:
             raise AssertionError("the body wrench does not move the cube")
 
     # the witness: B2's own live counts at each substep's start
-    flip1 = count_flips(tables, (q, qd, slip_g, slip_p), (q, qd), h)
-    flip2 = count_flips(tables, (k1[0], k1[1], k1[5], k1[6]), (mid[0], mid[1]), h)
-    flip_k = count_flips(tables, (k1[0], k1[1], k1[5], k1[6]), (k1[0], k1[1]), h)
-    at0, at_k, at_mid = (near_threshold(model, a, b) for a, b in ((q, qd), (k1[0], k1[1]), (mid[0], mid[1])))
-    skip = flip1 | flip2
+    flips = [count_flips(tables, ks, ps[:2], h) for ks, ps in zip(k_states, p_states)]
+    flip_k = count_flips(tables, kl, kl[:2], h)
+    at_k = [near_threshold(model, *ks[:2]) for ks in k_states]
+    at_p = [near_threshold(model, *ps[:2]) for ps in p_states]
+    skip = torch.zeros(n, dtype=torch.bool, device=dev)
+    witness = {}
+    for i, flip in enumerate(flips):
+        witness[f"flip_substep{i + 1}"] = int((flip & ~skip).sum())
+        _check_flips(f"substep {i + 1}", flip & ~skip, at_k[i] | at_p[i])
+        skip |= flip
     n_skip = int(skip.sum())
-    witness = {"flip_substep1": int(flip1.sum()), "flip_substep2": int((flip2 & ~flip1).sum()),
-               "flip_from_kernel_state": int(flip_k.sum()), "pair_at_threshold_substep1": int(at0.sum()),
-               "pair_at_threshold_kernel_state": int(at_k.sum())}
+    witness.update({"flip_from_kernel_state": int(flip_k.sum()), "pair_at_threshold_substep1": int(at_k[0].sum()),
+                    "pair_at_threshold_kernel_state": int(at_k[-1].sum())})
     print(f"count witness (envs): {witness}")
     # envs outside the tolerances, whatever the witness says
     bad = torch.zeros(n, dtype=torch.bool, device=dev)
-    for (name, tol), a, b in zip(SPLIT_TOLS.items(), out, ref):
+    for (key, tol), a, b in zip(tols.items(), out, ref):
         if tol is not None:
             bad |= ((a - b).abs() > tol[1] + tol[0] * b.abs()).reshape(n, -1).any(-1)
+    at_any = torch.stack(at_k + at_p).any(0)
     print(f"envs outside the tolerances over all envs: {int(bad.sum())}, of them with a count flip "
-          f"{int((bad & skip).sum())}, with a pair at its threshold {int((bad & (at0 | at_k | at_mid)).sum())}")
-    _check_flips("substep 1", flip1, at0)
-    _check_flips("substep 2", flip2 & ~flip1, at_k | at_mid)
-    _check_flips("substep 2 from the kernel's state", flip_k, at_k)
-    all_err = {name: float((a - b).abs().max()) for name, a, b in zip(SPLIT_TOLS, out, ref)
-               if SPLIT_TOLS[name] is not None}
-    pair_err = _compare(f"split_substep ({label})", out, ref, SPLIT_TOLS, skip)
-    second_err = _compare(f"split_substep ({label}), second substep from the kernel's state", out, ref_k,
-                          SPLIT_TOLS, flip_k)
+          f"{int((bad & skip).sum())}, with a pair at its threshold {int((bad & at_any).sum())}")
+    _check_flips("the last substep from the kernel's state", flip_k, at_k[-1])
+    all_err = {key: float((a - b).abs().max()) for key, a, b in zip(tols, out, ref) if tols[key] is not None}
+    pair_err = _compare(f"split_substep ({label})", out, ref, tols, skip)
+    last_err = _compare(f"split_substep ({label}), the last substep from the kernel's state", out, ref_k,
+                        tols, flip_k)
+    if ns:
+        print(f"{label}: sensor wrenches on bodies {model.sensor_body} (tolerance {sensor_tol}), max |wrench| "
+              f"{float(ref[7].abs().max()):.4g}")
     last = int((ref[3].abs().sum(-1) > 0).any(-1).sum())
     print(f"{label} vs plain at {n} envs, {env.substeps} substeps: max abs err {pair_err} over the {n - n_skip} envs "
-          f"whose live contact counts agree with B2's at both substeps' starts ({n_skip} whose do not: max abs err "
+          f"whose live contact counts agree with B2's at every substep's start ({n_skip} whose do not: max abs err "
           f"over all envs {all_err}); envs with an active pair contact: {active} at the start, {last} at the "
           f"last substep")
     print(f"count witness: every env whose counts differ has a pair within {THRESHOLD_EPS} m of its threshold")
-    print(f"second substep from the kernel's own state vs plain: max abs err {second_err} over the "
+    print(f"last substep from the kernel's own state vs plain: max abs err {last_err} over the "
           f"{n - int(flip_k.sum())} envs whose counts agree there")
     if last < n // 4:
         raise AssertionError(f"only {last} envs have a pair contact; the pair path is not exercised")
@@ -1243,9 +1293,71 @@ def phase_split_vs_plain(env, wrench: bool = False) -> dict:
     c_tols = {"f_ext": (2e-3, 5e-2), "contact_force": (2e-3, 5e-2), "contact_torque": (2e-3, 5e-2),
               "slip_g": None, "slip_p": (2e-3, 1e-5)}
     c_ref = fused_split.contacts_plain(tables, q, qd, slip_g, slip_p, h, body_wrench=bw)
+    result, kernels = {}, []
+    if contacts_alone:
+        # the kernel's state after one substep: its counts against the plain counts there
+        flip_k1 = flip_k if len(k_states) == 2 else count_flips(tables, k_states[1], k_states[1][:2], h)
+        _check_flips("substep 2 from the kernel's state", flip_k1, at_k[1])
+        c_err, c_ms, c_plain, cb = contacts_alone_vs_plain(tables, q, qd, slip_g, slip_p, h, bw, c_ref, c_tols,
+                                                           flips[0], k_states[1], flip_k1, b2, wrench)
+        result["split_contacts"] = {"max_abs_err": max(c_err.values()), "max_err": c_err, "ms": c_ms,
+                                    "plain_ms": c_plain, **cb}
+        kernels.append(("split_contacts" + (" (wrench mode)" if wrench else "") + name, c_ms, c_plain, cb))
+    if not wrench:  # B3 alone, from the plain f_ext (it takes no wrench input)
+        f_ext = c_ref[0]
+        d_ref = fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h)
+        qT, qdT = to_minor(q, n), to_minor(qd, n)
+        tgtT, zT, fextT = (to_minor(t, n) for t in (tgt, zero, f_ext))
+        dof_force = torch.empty((model.nd, n), device=dev)
+        jwT = torch.empty((6 * ns, n), device=dev) if ns else None
+        q2, qd2 = qT.clone(), qdT.clone()
+        fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h, jwT)
+        d_out = (from_minor(q2, n, model.nq), from_minor(qd2, n, model.nv), from_minor(dof_force, n, model.nd),
+                 None if jwT is None else from_minor(jwT, n, ns, 6))
+        d_tols = {"q": SPLIT_TOLS["q"], "qd": SPLIT_TOLS["qd"], "dof_force": SPLIT_TOLS["dof_force"],
+                  "joint_wrench": tols["joint_wrench"]}
+        d_err = _compare(f"split_dynamics (B3{name})", d_out, d_ref, d_tols)
+        print(f"B3{name} alone vs dynamics_plain: max abs err {d_err}")
+        d_ms = cuda_ms(lambda: fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h, jwT))
+        d_plain = cuda_ms(lambda: fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h), warmup=1, runs=5)
+        d_bytes = tables.table.numel() + 4 * n * (
+            2 * (model.nq + model.nv)              # q, qd in and out
+            + 3 * model.nd + 6 * model.nb          # targets, effort, f_ext in
+            + model.nd + 6 * ns                    # dof_force, sensor wrenches out
+        )
+        db = bound(d_bytes, split_dynamics_flops(model, n) + sensor_flops(model) * n)
+        result["split_dynamics"] = {"max_abs_err": max(d_err.values()), "max_err": d_err, "ms": d_ms,
+                                    "plain_ms": d_plain, **db}
+        kernels.append(("split_dynamics" + (" (sensor output)" if ns else "") + name, d_ms, d_plain, db))
+    for kname, ms, pms, b in kernels:
+        print(f"{kname}: kernel {ms:.4f} ms per launch, plain {pms:.4f} ms; bound: {b['bytes']} bytes "
+              f"-> {b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
+    wrap_ms = cuda_ms(lambda: fused_split.split_substep(tables, *args, body_wrench=bw))
+    plain_ms = cuda_ms(lambda: fused_split.split_substep_plain(tables, *args, body_wrench=bw), warmup=1, runs=5)
+    print(f"split_substep wrapper ({env.substeps} x ({label}) with the env-minor copies): {wrap_ms:.4f} ms; "
+          f"split_substep_plain {plain_ms:.4f} ms")
+    return {
+        **result,
+        "pair": {"max_err": pair_err, "max_err_all_envs": all_err, "count_flip_envs": n_skip, "witness": witness,
+                 "max_err_last_substep_from_kernel_state": last_err,
+                 "wrapper_ms": wrap_ms, "plain_ms": plain_ms, "active_envs": active,
+                 "contact_envs_last_substep": last},
+    }
+
+
+def contacts_alone_vs_plain(tables, q, qd, slip_g, slip_p, h, bw, c_ref, c_tols, flip1, k_state, flip_k, b2,
+                            wrench):
+    """B2 alone against `contacts_plain` at the start and at the kernel's own
+    state `k_state` (q, qd, slip_g, slip_p) after one substep (envs excused
+    by the count witness: `flip1` at the start, `flip_k` there), B2's own
+    outputs held to the wrench mode's contract when `wrench`; B2 and its
+    plain version timed.  Returns (max_err, ms, plain_ms, bound)."""
+    from isaacgymenv_tpu_torch.physics import fused_split
+    from isaacgymenv_tpu_torch.physics.fused import to_minor
+
+    model, n, dev = tables.model, q.shape[0], q.device
     c_out = contacts_kernel(tables, q, qd, slip_g, slip_p, h, bw)
     c_err = _compare(f"split_contacts ({b2})", c_out[:5], c_ref, c_tols, flip1)
-    k_state = (k1[0], k1[1], k1[5], k1[6])
     c_out_k = contacts_kernel(tables, *k_state, h, bw)
     c_err_k = _compare(f"split_contacts ({b2}) at the kernel's state", c_out_k[:5],
                        fused_split.contacts_plain(tables, *k_state, h, body_wrench=bw), c_tols, flip_k)
@@ -1258,52 +1370,17 @@ def phase_split_vs_plain(env, wrench: bool = False) -> dict:
               f"the welded root under its 3 N and 1 N m of body wrench")
 
     # timed in place: each call advances its own copy of the state by one substep
+    ground = model.ng and not model.no_ground
     qT, qdT, slip_pT = (to_minor(t, n) for t in (q, qd, slip_p))
+    slip_gT = to_minor(slip_g, n) if ground else None
     bwT = None if bw is None else to_minor(bw, n)
     fext, cf, ct = (torch.empty((k * model.nb, n), device=dev) for k in (6, 3, 3))
-    c_ms = cuda_ms(lambda: fused_split.launch_contacts(tables, qT, qdT, None, slip_pT, fext, cf, ct, h, bwT=bwT))
+    c_ms = cuda_ms(lambda: fused_split.launch_contacts(tables, qT, qdT, slip_gT, slip_pT, fext, cf, ct, h, bwT=bwT))
     c_plain = cuda_ms(lambda: fused_split.contacts_plain(tables, q, qd, slip_g, slip_p, h, body_wrench=bw),
                       warmup=1, runs=5)
-    wrap_ms = cuda_ms(lambda: fused_split.split_substep(tables, *args, body_wrench=bw))
-    plain_ms = cuda_ms(lambda: fused_split.split_substep_plain(tables, *args, body_wrench=bw), warmup=1, runs=5)
     cb = bound(split_contacts_bytes(tables, n, wrench), split_contacts_flops(model, n, wrench))
-    result = {"split_contacts": {"max_abs_err": max(max(c_err.values()), max(c_err_k.values())),
-                                 "max_err": c_err, "ms": c_ms, "plain_ms": c_plain, **cb}}
-    kernels = [("split_contacts" + (" (wrench mode)" if wrench else ""), c_ms, c_plain, cb)]
-    if not wrench:  # B3 alone, from the plain f_ext (it takes no wrench input)
-        f_ext = c_ref[0]
-        d_ref = fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h)
-        tgtT, zT, fextT = (to_minor(t, n) for t in (tgt, zero, f_ext))
-        dof_force = torch.empty((model.nd, n), device=dev)
-        q2, qd2 = qT.clone(), qdT.clone()
-        fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h)
-        d_out = (from_minor(q2, n, model.nq), from_minor(qd2, n, model.nv), from_minor(dof_force, n, model.nd))
-        d_err = _compare("split_dynamics (B3)", d_out, d_ref,
-                         {"q": SPLIT_TOLS["q"], "qd": SPLIT_TOLS["qd"], "dof_force": SPLIT_TOLS["dof_force"]})
-        print(f"B3 alone vs dynamics_plain: max abs err {d_err}")
-        d_ms = cuda_ms(lambda: fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h))
-        d_plain = cuda_ms(lambda: fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h), warmup=1, runs=5)
-        d_bytes = tables.table.numel() + 4 * n * (
-            2 * (model.nq + model.nv)              # q, qd in and out
-            + 3 * model.nd + 6 * model.nb          # targets, effort, f_ext in
-            + model.nd                             # dof_force out
-        )
-        db = bound(d_bytes, split_dynamics_flops(model, n))
-        result["split_dynamics"] = {"max_abs_err": max(d_err.values()), "max_err": d_err, "ms": d_ms,
-                                    "plain_ms": d_plain, **db}
-        kernels.append(("split_dynamics", d_ms, d_plain, db))
-    for name, ms, pms, b in kernels:
-        print(f"{name}: kernel {ms:.4f} ms per launch, plain {pms:.4f} ms; bound: {b['bytes']} bytes "
-              f"-> {b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
-    print(f"split_substep wrapper ({env.substeps} x ({label}) with the env-minor copies): {wrap_ms:.4f} ms; "
-          f"split_substep_plain {plain_ms:.4f} ms")
-    return {
-        **result,
-        "pair": {"max_err": pair_err, "max_err_all_envs": all_err, "count_flip_envs": n_skip, "witness": witness,
-                 "max_err_second_substep_from_kernel_state": second_err,
-                 "wrapper_ms": wrap_ms, "plain_ms": plain_ms, "active_envs": active,
-                 "contact_envs_last_substep": last},
-    }
+    max_err = {k: max(c_err[k], c_err_k[k]) for k in c_err}
+    return max_err, c_ms, c_plain, cb
 
 
 def phase_split_ground(env) -> dict:
@@ -1328,6 +1405,138 @@ def phase_split_ground(env) -> dict:
     if contact < N_ENVS // 4:
         raise AssertionError(f"only {contact} envs have ground contact; the ground path is not exercised")
     return {"max_err": err, "contact_envs": contact}
+
+
+def quad_flight_state(env, n: int, seed: int):
+    """Quadcopter q, qd, pos_target and body wrenches (CPU tensors) in flight:
+    the chassis tilted up to about 20 degrees and moving at up to 1 m/s and
+    2 rad/s, the rotor hinges anywhere within their limits and turning;
+    thrusts of 0-2 N along each rotor's axis (its local +z turned into the
+    world by its pose), N(0, 1e-2) N and N(0, 1e-3) N m on every body."""
+    from isaacgymenv_tpu_torch.ops import maths
+    from isaacgymenv_tpu_torch.physics import engine, types
+
+    rng = np.random.default_rng(seed)
+    m = env.model
+    lo, hi = m.dof_lower.cpu().numpy(), m.dof_upper.cpu().numpy()
+    q = np.zeros((n, m.nq), np.float32)
+    q[:, 0:3] = rng.uniform(-1.0, 1.0, (n, 3)) + [0.0, 0.0, 1.0]
+    quat = rng.normal(size=(n, 4)) * 0.1 + [0.0, 0.0, 0.0, 1.0]
+    q[:, 3:7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, 7:] = rng.uniform(lo, hi, (n, m.nd))
+    qd = np.zeros((n, m.nv), np.float32)
+    qd[:, 0:3] = rng.uniform(-2.0, 2.0, (n, 3))
+    qd[:, 3:6] = rng.uniform(-1.0, 1.0, (n, 3))
+    qd[:, 6:] = rng.uniform(-3.0, 3.0, (n, m.nd))
+    tgt = rng.uniform(lo, hi, (n, m.nd))
+    f = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    q, qd, tgt = f(q), f(qd), f(tgt)
+    state = dataclasses.replace(types.make_zero_state(m.to("cpu"), n), q=q, qd=qd)
+    quat_w = engine.forward(m.to("cpu"), None, state).body_quat
+    bw = f(np.concatenate([rng.normal(size=(n, m.nb, 3)) * 1e-3, rng.normal(size=(n, m.nb, 3)) * 1e-2], -1))
+    thrust = torch.zeros((n, 3))
+    for b in env.rotor_bodies:
+        thrust[:, 2] = f(rng.uniform(0.0, env.thrust_max, n))
+        bw[:, b, 3:] += maths.quat_rotate(quat_w[:, b], thrust)
+    return q, qd, tgt, bw
+
+
+def phase_wrench_kernel_vs_plain(env, fused) -> dict:
+    """B1 in its wrench mode on Quadcopter's scene (no geoms) at the slice's
+    width, against `fused_substep_plain` with the same body wrenches, at the
+    tolerances of tests/test_fused.py; with no contact, the contact force and
+    torque must be exactly 0 (the torque holds no wrench); B1 with an all-zero
+    wrench must equal B1 without one, bit for bit; both timed."""
+    dev, model = env.device, env.model
+    n, h, substeps = env.num_envs, env.dt / env.substeps, env.substeps
+    tables = fused.tables_for(model, dev)
+    q, qd, tgt, bw = (t.to(dev) for t in quad_flight_state(env, n, seed=1))
+    zero = torch.zeros_like(tgt)
+    args = (q, qd, tgt, zero, zero, None, h, substeps)
+    out = fused.fused_substep(tables, *args, body_wrench=bw)
+    ref = fused.fused_substep_plain(tables, *args, body_wrench=bw)
+    torch.cuda.synchronize()
+    tols = {k: v for k, v in TOLS.items() if k != "slip_g"}
+    max_err = _compare("fused_substep (B1, wrench mode)", out, ref, tols)
+    if out[5] is not None or out[6] is not None:
+        raise AssertionError("B1 on a scene without geoms or sensors returned a slip state or sensor wrenches")
+    contact = max(float(out[3].abs().max()), float(out[4].abs().max()))
+    if contact != 0.0:
+        raise AssertionError(f"B1 wrench mode: a contact force or torque of {contact:.4g} on a scene without "
+                             f"contacts; the body wrench leaked into the contact outputs")
+    unforced = fused.fused_substep(tables, *args)
+    zero_wrench = fused.fused_substep(tables, *args, body_wrench=torch.zeros_like(bw))
+    if not all(torch.equal(a, b) for a, b in zip(unforced[:5], zero_wrench[:5])):
+        raise AssertionError("B1 with an all-zero body wrench differs from B1 without one")
+    moved = float((out[0] - unforced[0])[:, 0:3].abs().max())
+    print(f"B1 wrench mode vs plain at {n} Quadcopter envs, {substeps} substeps, every env carrying thrusts of "
+          f"0-{env.thrust_max} N on its {len(env.rotor_bodies)} rotors: max abs err {max_err}; contact force and "
+          f"torque exactly 0; the wrench moves the chassis by up to {moved:.4g} m; a zero wrench equals none, "
+          f"bit for bit")
+    if moved < 1e-4:
+        raise AssertionError("the body wrenches do not move the quadcopter")
+    ms = cuda_ms(lambda: fused.fused_substep(tables, *args, body_wrench=bw))
+    plain_ms = cuda_ms(lambda: fused.fused_substep_plain(tables, *args, body_wrench=bw), warmup=1, runs=5)
+    b = bound(fused_substep_bytes(model, n, wrench=True), fused_substep_flops(model, n, substeps, wrench=True))
+    print(f"fused_substep (wrench mode): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound: {b['bytes']} bytes -> "
+          f"{b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
+    return {"max_abs_err": max(max_err.values()), "max_err": max_err, "ms": ms, "plain_ms": plain_ms, **b}
+
+
+def ball_on_tray_state(env, n: int, seed: int):
+    """BallBalance q, qd, pos_target, slip_p (CPU tensors): the bot near its
+    default pose (dofs within 0.02 rad, so the feet sit near their anchors,
+    the tray within 2 mm and about 0.6 degrees), the ball 0.5-2 mm into the
+    tray's top face within 0.3 m of its center, rolling at up to 1.4 m/s and
+    sinking at up to 5 cm/s: the tray pair is live in most envs, at its
+    threshold in some."""
+    rng = np.random.default_rng(seed)
+    m = env.model
+    ball = m.actor_root[env.ball_actor]
+    tq, bq, bv = m.q_adr[env.tray_body], m.q_adr[ball], m.v_adr[ball]
+    q = np.zeros((n, m.nq), np.float32)
+    q[:, tq + 2] = env.tray_height + 0.002 * rng.uniform(-1, 1, n)
+    quat = rng.normal(size=(n, 4)) * 0.005 + [0.0, 0.0, 0.0, 1.0]
+    q[:, tq + 3:tq + 7] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    q[:, list(m.dof_q_adr)] = 0.02 * rng.uniform(-1, 1, (n, m.nd))
+    r, th = 0.3 * np.sqrt(rng.random(n)), rng.uniform(-np.pi, np.pi, n)
+    q[:, bq], q[:, bq + 1] = r * np.cos(th), r * np.sin(th)
+    q[:, bq + 2] = env.tray_height + 0.01 + env.ball_radius - rng.uniform(0.0005, 0.002, n)
+    q[:, bq + 6] = 1.0
+    qd = np.zeros((n, m.nv), np.float32)
+    qd[:, :bv] = 0.05 * rng.normal(size=(n, bv))
+    qd[:, bv + 3:bv + 5] = rng.uniform(-1.0, 1.0, (n, 2))  # the ball's frame is the world's (identity pose)
+    qd[:, bv + 5] = -0.05 * rng.random(n)
+    tgt = 0.02 * rng.uniform(-1, 1, (n, m.nd))
+    slip = 1e-4 * rng.normal(size=(n, m.n_pairs, 3))
+    return [torch.tensor(a, dtype=torch.float32) for a in (q, qd, tgt, slip)]
+
+
+# The tray's free joint transmits no wrench in exact arithmetic: its sensor
+# reads rounding noise (a few 1e-5 N), so it is held to an absolute tolerance
+TRAY_SENSOR_TOL = (0.0, 1e-3)
+# ShadowHand's revolute finger bodies that chip_smoke declares as force-sensor
+# bodies, for B3's sensor output on real joint wrenches
+HAND_SENSOR_BODIES = ("robot0:ffproximal", "robot0:mfproximal", "robot0:rfproximal", "robot0:lfproximal",
+                      "robot0:thproximal", "robot0:ffmiddle")
+
+
+def phase_hand_sensors_vs_plain(env) -> dict:
+    """B3's sensor output on ShadowHand's model with force sensors declared on
+    six revolute finger bodies, the cube on the palm, at the slice's width:
+    B2 + B3 and B3 alone against their plain versions, the sensor wrenches at
+    tests/test_fused.py's tolerance, with the count witness."""
+    from isaacgymenv_tpu_torch.physics import types
+
+    model = env.model
+    bodies = tuple(model.body_names.index(b) for b in HAND_SENSOR_BODIES)
+    if any(model.jtype[b] != types.JT_REVOLUTE for b in bodies):
+        raise AssertionError(f"the hand's sensor bodies {HAND_SENSOR_BODIES} are not all revolute")
+    env.model = dataclasses.replace(model, sensor_body=bodies)
+    out = phase_split_vs_plain(env, sensor_tol=SENSOR_TOLS["joint_wrench"], contacts_alone=False,
+                               name=" (ShadowHand)")
+    env.model = model
+    return out
 
 
 def build_all() -> None:
@@ -1418,6 +1627,36 @@ def main() -> int:
     phase_slice_vs_plain("Ant", {"obs": (1e-3, 1e-2), "rew": (1e-3, 1e-2), "done": (0, 0), "q": (2e-4, 2e-4)},
                          seed_state=lambda env, n: ant_contact_state(env, n, seed=2))
     training = phase_train(card)  # Ant at N_ENVS, B1 once per step
+    torch.cuda.empty_cache()
+
+    # Quadcopter: B1's wrench mode on a scene without geoms, the acting step,
+    # the env step against the CPU, training
+    env = isaacgymenv_tpu_torch.make("Quadcopter", num_envs=QUAD_ENVS)
+    k1w = phase_wrench_kernel_vs_plain(env, fused)
+    del env
+    quad = phase_slice("Quadcopter", QUAD_ENVS, mono, card)
+    phase_slice_vs_plain("Quadcopter", {"obs": (1e-3, 1e-3), "rew": (1e-3, 1e-3), "done": (0, 0),
+                                        "q": (2e-4, 2e-4), "dof_targets": (0, 0), "thrusts": (0, 0)})
+    quad_training = phase_train(card, "Quadcopter", QUAD_ENVS, SMALL_TRAIN_EPOCHS, mono)
+    torch.cuda.empty_cache()
+
+    # BallBalance: B2 with the world anchors and B3 with the tray's sensor
+    # output, the sensor output on real wrenches (the hand's fingers), the
+    # acting step, the env step against the CPU, training
+    env = isaacgymenv_tpu_torch.make("BallBalance", num_envs=BALL_ENVS)
+    k23a = phase_split_vs_plain(env, state=ball_on_tray_state, sensor_tol=TRAY_SENSOR_TOL, name=" (BallBalance)")
+    del env
+    env = isaacgymenv_tpu_torch.make("ShadowHand", num_envs=HAND_ENVS)
+    k3h = phase_hand_sensors_vs_plain(env)
+    del env
+    torch.cuda.empty_cache()
+    split4 = {"fused_substep": 0, "split_contacts": 4, "split_dynamics": 4}
+    ball = phase_slice("BallBalance", BALL_ENVS, split4, card)
+    # obs held absolutely (its 12 sensor entries read rounding noise, which a relative tolerance would not bound)
+    on_tray = lambda env, n: ball_on_tray_state(env, n, seed=2)[:2]  # noqa: E731
+    phase_slice_vs_plain("BallBalance", {"obs": (0, 1e-3), "rew": (1e-3, 1e-4), "done": (0, 0), "q": (5e-4, 5e-4),
+                                         "dof_targets": (0, 0)}, seed_state=on_tray)
+    ball_training = phase_train(card, "BallBalance", BALL_ENVS, SMALL_TRAIN_EPOCHS, split4)
 
     kernels = [
         kernel_entry("fused_substep", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
@@ -1437,12 +1676,24 @@ def main() -> int:
         kernel_entry("split_dynamics", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
                      "isaacgymenv_tpu/physics/fused_split.py:755", hand["split_dynamics"], k23["split_dynamics"],
                      "joints, drives, tendons (ShadowHand)"),
+        kernel_entry("fused_substep_wrench", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
+                     "isaacgymenv_tpu/physics/fused.py:430", quad["fused_substep"], k1w,
+                     "wrench_mode, no geoms (Quadcopter)"),
+        kernel_entry("split_contacts_anchors", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
+                     "isaacgymenv_tpu/physics/fused_split.py:350", ball["split_contacts"], k23a["split_contacts"],
+                     "world anchors, flat ground, pairs (BallBalance)"),
+        kernel_entry("split_dynamics_sensors", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
+                     "isaacgymenv_tpu/physics/fused_split.py:755", ball["split_dynamics"], k23a["split_dynamics"],
+                     "sensor output (BallBalance: the tray)"),
     ]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s of wall time, the builds "
           f"included")
     print(json.dumps({"kernels": kernels, "split_pair": k23["pair"], "split_pair_wrench": k2w["pair"],
                       "split_pair_ground": ground, "terrain_env_step": terrain_env_step,
-                      "sensors_fixed_joint_scene": k1q, "training": training, "training_hand": hand_training}))
+                      "sensors_fixed_joint_scene": k1q, "split_pair_anchors": k23a["pair"],
+                      "split_sensors_hand": {"pair": k3h["pair"], "split_dynamics": k3h["split_dynamics"]},
+                      "training": training, "training_hand": hand_training, "training_quadcopter": quad_training,
+                      "training_ball_balance": ball_training}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

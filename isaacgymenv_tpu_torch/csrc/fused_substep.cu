@@ -4,10 +4,14 @@
 // for the scenes that isaacgymenv_tpu_torch/physics/fused.py:fused_structural_ok
 // accepts: free roots + revolute/prismatic/fixed joints, DRIVE_* dof drives
 // with limits/friction/armature, sphere contacts against the ground with the
-// stiction slip carry and force sensors, no pairs/anchors/tendons.  The ground is the
+// stiction slip carry (none when the scene has no geoms), force sensors and
+// per-body external wrenches, no pairs/anchors/tendons.  The ground is the
 // plane z = 0, or a heightfield sampled by the caller once per control step
 // (terrain_mode: per-geom height and normal, held across the substeps as the
-// TPU kernel holds them); friction is the table's or per env (fric_mode).
+// TPU kernel holds them); friction is the table's or per env (fric_mode); the
+// body wrenches (wrench_mode: world [moment, force] per body, held for all
+// substeps of the launch) are added to f_ext after the contact torque is
+// taken, so that it stays the contacts' moment (fused.py:993-1001).
 // Each thread runs all `substeps` iterations of one control step for its env:
 // FK -> ground contacts (two passes: live per-body counts, then forces) ->
 // drive/passive forces + implicit diagonal -> ABA -> velocity clamps and
@@ -59,6 +63,7 @@ struct EnvIO {
     const float* effort;      // (nd, n)
     float* slip;         // (ng*3, n) in/out
     Ground ground;       // held height (ng, n) + normal (ng*3, n), friction (ng, n); null = off
+    const float* bw;     // (nb*6, n) or null: body wrenches, world [moment, force] about each body origin
     float* dof_force;    // (nd, n) out
     float* contact_force;   // (nb*3, n) out
     float* contact_torque;  // (nb*3, n) out
@@ -92,6 +97,15 @@ FS_HD static void fused_env(const FusedModel& M, const EnvIO& io, int e, int n,
         for (int i = 0; i < nb; ++i) share[i] = 1.0f / fmaxf(share[i], 1.0f);
         float* probe = io.probe ? io.probe + (size_t)step * 2 * M.ng * n : nullptr;
         ground_forces(M, kin, io.ground, share, io.slip, e, n, h, hh, fext, cf, probe);
+        if (step == substeps - 1)  // the last substep's contacts, before any body wrench
+            for (int b = 0; b < nb; ++b)
+                for (int k = 0; k < 3; ++k) {
+                    io.contact_force[(size_t)(3 * b + k) * n + e] = cf[b][k];
+                    io.contact_torque[(size_t)(3 * b + k) * n + e] = fext[b][k];
+                }
+        if (io.bw)
+            for (int b = 0; b < nb; ++b)
+                for (int k = 0; k < 6; ++k) fext[b][k] += io.bw[(size_t)(6 * b + k) * n + e];
         joint_forces(M, q, qd, io.pos_target, io.vel_target, io.effort, e, n, h, hh, tau, dextra);
         aba(M, kin, tau, dextra, fext, qdd, io.joint_wrench && step == substeps - 1 ? jw : nullptr);
         integrate(M, q, qd, qdd, h);
@@ -100,11 +114,6 @@ FS_HD static void fused_env(const FusedModel& M, const EnvIO& io, int e, int n,
     for (int k = 0; k < M.nq; ++k) io.q[(size_t)k * n + e] = q[k];
     for (int k = 0; k < nv; ++k) io.qd[(size_t)k * n + e] = qd[k];
     for (int d = 0; d < nd; ++d) io.dof_force[(size_t)d * n + e] = tau[d];
-    for (int b = 0; b < nb; ++b)
-        for (int k = 0; k < 3; ++k) {
-            io.contact_force[(size_t)(3 * b + k) * n + e] = cf[b][k];
-            io.contact_torque[(size_t)(3 * b + k) * n + e] = fext[b][k];
-        }
     if (io.joint_wrench)
         for (int k = 0; k < 6 * M.ns; ++k) io.joint_wrench[(size_t)k * n + e] = jw[k];
 }
@@ -117,16 +126,18 @@ __global__ void fused_substep_kernel(const FusedModel* __restrict__ model, EnvIO
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// ground_h, ground_n, geom_fric, joint_wrench and probe may be null (mode off
-// / not wanted); joint_wrench must be given when the model has sensors.
+// ground_h, ground_n, geom_fric, bw, joint_wrench and probe may be null (mode
+// off / not wanted); joint_wrench must be given when the model has sensors;
+// slip may be null when the model has no geoms.
 extern "C" int fused_substep_launch(const void* model, float* q, float* qd,
                                     const float* pos_target, const float* vel_target,
                                     const float* effort, float* slip, const float* ground_h,
-                                    const float* ground_n, const float* geom_fric, float* dof_force,
+                                    const float* ground_n, const float* geom_fric, const float* bw,
+                                    float* dof_force,
                                     float* contact_force, float* contact_torque, float* joint_wrench,
                                     float* probe,
                                     int n, float h, float hh, int substeps, void* stream) {
-    EnvIO io{q, qd, pos_target, vel_target, effort, slip, Ground{ground_h, ground_n, geom_fric},
+    EnvIO io{q, qd, pos_target, vel_target, effort, slip, Ground{ground_h, ground_n, geom_fric}, bw,
              dof_force, contact_force, contact_torque, joint_wrench, probe};
     const int threads = 32;  // one warp per block: spreads 4096 envs over 128 SMs
     const int blocks = (n + threads - 1) / threads;

@@ -6,22 +6,28 @@
 // isaacgymenv_tpu_torch/physics/fused_split.py:split_structural_ok accepts:
 // B1's joints and drives (substep_common.cuh), flat-ground or `no_ground`
 // scenes, body-vs-body pair contacts of spheres against sphere, box, capsule
-// and capped-cylinder surfaces, fixed tendons, and B2's wrench mode (an
-// optional external wrench per body, `bw`).  No anchors, gravity
-// compensation, force sensors, terrain or per-env model leaves.
+// and capped-cylinder surfaces, world anchors, fixed tendons, B2's wrench
+// mode (an optional external wrench per body, `bw`) and B3's sensor output
+// (an optional `joint_wrench`).  No gravity compensation, terrain or
+// per-env model leaves.
 //
 // B2: FK -> pass 1 counts the live contacts per body (ground geoms, then a
 // rolled loop over the pair table) -> pass 2 divides each contact's
 // effective-mass budget by its bodies' counts and accumulates the forces
-// per body (ground, then pairs) -> writes the contact force and torque,
-// then adds the body wrench when `bw` is given (wrench mode, the order of
-// fused_split.py:742-749: the contact torque is the contacts' moment alone)
-// and writes the world external wrench f_ext per body; the slip states are
-// updated in place.  B3: FK again (as the TPU kernel does, rather than moving 36 floats
+// per body (ground, then pairs) -> the world anchors' spring-dampers
+// (fused_split.py:705-723) -> writes the contact force and torque (the
+// torque is the moment of the contacts and anchors), then adds the body
+// wrench when `bw` is given (wrench mode, the order of
+// fused_split.py:742-749: the contact torque holds no wrench) and writes the
+// world external wrench f_ext per body; the slip states are updated in
+// place.  B3: FK again (as the TPU kernel does, rather than moving 36 floats
 // per body through memory) -> drive, passive and tendon forces -> ABA with
-// f_ext -> semi-implicit integration; q and qd are updated in place.  The
-// contact force/torque of the last substep's B2 and the dof force of its B3
-// are the step's (PhysX CC_LAST_SUBSTEP).
+// f_ext -> semi-implicit integration; q and qd are updated in place; when
+// `joint_wrench` is given, each sensor body's inbound joint wrench from
+// that launch's ABA (fused_split.py:955-960; the caller passes it to the
+// last substep's launch only).  The contact force/torque of the last
+// substep's B2 and the dof force and sensor wrenches of its B3 are the
+// step's (PhysX CC_LAST_SUBSTEP).
 //
 // The model is data: struct SplitModel (the FusedModel table plus the
 // tendons) and the pair table, `pint` (n_pairs x 4, int32) and `pflt`
@@ -48,6 +54,7 @@
 #define SP_MAX_TENDONS 8
 #define SP_MAX_TENDON_DOFS 4
 #define SP_MAX_PAIRS 1024
+#define SP_MAX_ANCHORS 8
 
 // pair table slots (fused_split.py:83-101)
 enum { PI_G = 0, PI_GB = 1, PI_SB = 2, PI_KIND = 3, PI_N = 4 };
@@ -67,6 +74,11 @@ struct SplitModel {
     float tendon_coef[SP_MAX_TENDONS][SP_MAX_TENDON_DOFS];
     float tendon_lo[SP_MAX_TENDONS], tendon_hi[SP_MAX_TENDONS];
     float tendon_k[SP_MAX_TENDONS], tendon_d[SP_MAX_TENDONS];
+    int na;                                           // world anchors
+    int anchor_body[SP_MAX_ANCHORS];
+    float anchor_off[SP_MAX_ANCHORS][3];              // body frame
+    float anchor_target[SP_MAX_ANCHORS][3];           // world
+    float anchor_meff[SP_MAX_ANCHORS];
 };
 
 FS_HD static inline float sgn(float x) { return (float)((x > 0.0f) - (x < 0.0f)); }
@@ -262,10 +274,17 @@ FS_HD static void contacts_env(const SplitModel& S, const int* pint, const float
         }
     }
 
+    // world anchors, after the pairs (fused_split.py:705-723)
+    for (int a = 0; a < S.na; ++a) {
+        const int b = S.anchor_body[a];
+        anchor_force(kin.Rw[b], kin.pw[b], kin.wang[b], kin.wlin[b], S.anchor_off[a], S.anchor_target[a],
+                     S.anchor_meff[a], h, hh, fext[b]);
+    }
+
     for (int b = 0; b < nb; ++b) {
         for (int c = 0; c < 3; ++c) {
             io.cf[(size_t)(3 * b + c) * n + e] = cf[b][c];
-            io.ct[(size_t)(3 * b + c) * n + e] = fext[b][c];  // before the wrench
+            io.ct[(size_t)(3 * b + c) * n + e] = fext[b][c];  // contacts and anchors, before the wrench
         }
         for (int c = 0; c < 6; ++c) {
             float v = fext[b][c];
@@ -285,6 +304,7 @@ struct DynamicsIO {
     const float* effort;      // (nd, n)
     const float* fext;        // (nb*6, n) from B2
     float* dof_force;         // (nd, n) out
+    float* joint_wrench;      // (ns*6, n) out or null: sensor wrenches [force, torque], body frame
 };
 
 FS_HD static void dynamics_env(const SplitModel& S, const DynamicsIO& io, int e, int n, float h, float hh) {
@@ -313,12 +333,15 @@ FS_HD static void dynamics_env(const SplitModel& S, const DynamicsIO& io, int e,
         const float f = -S.tendon_k[t] * viol - S.tendon_d[t] * Ld * (fabsf(viol) > 0.0f ? 1.0f : 0.0f);
         for (int j = 0; j < S.tendon_n[t]; ++j) tau[S.tendon_dof[t][j]] += f * S.tendon_coef[t][j];
     }
-    aba(M, kin, tau, dextra, fext, qdd, nullptr);
+    float jw[FS_MAX_SENSORS * 6];
+    aba(M, kin, tau, dextra, fext, qdd, io.joint_wrench ? jw : nullptr);
     integrate(M, q, qd, qdd, h);
 
     for (int i = 0; i < M.nq; ++i) io.q[(size_t)i * n + e] = q[i];
     for (int i = 0; i < M.nv; ++i) io.qd[(size_t)i * n + e] = qd[i];
     for (int d = 0; d < M.nd; ++d) io.dof_force[(size_t)d * n + e] = tau[d];
+    if (io.joint_wrench)
+        for (int k = 0; k < 6 * M.ns; ++k) io.joint_wrench[(size_t)k * n + e] = jw[k];
 }
 
 #ifdef __CUDACC__
@@ -347,10 +370,12 @@ extern "C" int split_contacts_launch(const void* model, const int* pint, const f
     return (int)cudaGetLastError();
 }
 
+// joint_wrench may be null (no sensor output wanted from this launch).
 extern "C" int split_dynamics_launch(const void* model, float* q, float* qd, const float* pos_target,
                                      const float* vel_target, const float* effort, const float* fext,
-                                     float* dof_force, int n, float h, float hh, void* stream) {
-    DynamicsIO io{q, qd, pos_target, vel_target, effort, fext, dof_force};
+                                     float* dof_force, float* joint_wrench, int n, float h, float hh,
+                                     void* stream) {
+    DynamicsIO io{q, qd, pos_target, vel_target, effort, fext, dof_force, joint_wrench};
     split_dynamics_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
         (const SplitModel*)model, io, n, h, hh);
     return (int)cudaGetLastError();

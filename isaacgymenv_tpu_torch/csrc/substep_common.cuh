@@ -381,6 +381,29 @@ FS_HD static void ground_forces(const FusedModel& M, const Kin& k, const Ground&
     }
 }
 
+// ------------------------------------------------------------- world anchors
+
+// One world anchor (contact.anchor_forces): the point `off` (body frame) of a
+// body at pose (R, p) with world velocities (wang, wlin) of its origin, held
+// at the world point `target` by the stiffest spring-damper stable at the
+// substep h (Baumgarte): f = -(0.2 m / h^2) d - (0.7 m / h) v with m the
+// anchor's effective mass.  Adds world [moment, force] about the body origin
+// to fext6.  Shared by the kernels that take anchors (B2 now).
+FS_HD static inline void anchor_force(const float* R, const float* p, const float* wang, const float* wlin,
+                                      const float* off, const float* target, float m, float h, float hh,
+                                      float* fext6) {
+    float lever[3], w[3], f[3], tq[3];
+    mv3(R, off, lever);
+    cross3(wang, lever, w);
+    const float kp = 0.2f * m / hh, kd = 0.7f * m / h;
+    for (int c = 0; c < 3; ++c) f[c] = -kp * ((p[c] + lever[c]) - target[c]) - kd * (wlin[c] + w[c]);
+    cross3(lever, f, tq);
+    for (int c = 0; c < 3; ++c) {
+        fext6[c] += tq[c];
+        fext6[3 + c] += f[c];
+    }
+}
+
 // ----------------------------------------------------------------- joint forces
 
 // Drive force (clamped to the effort limit) plus the passive limit spring,

@@ -9,7 +9,8 @@ _REGISTRY: Dict[str, Callable] = {}
 
 # (module, registry name) of the ported tasks
 _TASKS = [("anymal", "Anymal"), ("anymal_terrain", "AnymalTerrain"), ("shadow_hand", "ShadowHand"),
-          ("shadow_hand", "ShadowHandOpenAI_LSTM"), ("ant", "Ant")]
+          ("shadow_hand", "ShadowHandOpenAI_LSTM"), ("ant", "Ant"), ("ball_balance", "BallBalance"),
+          ("quadcopter", "Quadcopter")]
 
 
 def register(*names: str):

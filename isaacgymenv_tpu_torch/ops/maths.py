@@ -66,6 +66,13 @@ def quat_rotate_inverse(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_apply(quat_conjugate(q), v)
 
 
+def quat_axis(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Basis vector `axis` of the rotation q."""
+    basis = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype, device=q.device)
+    basis[..., axis] = 1.0
+    return quat_apply(q, basis)
+
+
 def quat_from_angle_axis(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
     """Quaternion of a rotation by angle (...,) about axis (..., 3)."""
     theta = (angle / 2.0)[..., None]

@@ -7,8 +7,9 @@ stiction projected onto the Coulomb cone, and the live per-body contact
 counts that renormalize every contact's effective-mass budget.  The ground
 is the flat plane z = 0 (`terrain=None`) or a `Heightfield` with the
 reference's two-corner-min height lookup; the surfaces are spheres, boxes,
-capsules and capped cylinders.  The containment wall (`SURF_WALL`), anchors
-and SDFs are not ported.
+capsules and capped cylinders.  World anchors (`anchor_forces`) pin body
+points to world targets.  The containment wall (`SURF_WALL`) and SDFs are
+not ported.
 
 Where the ground is looked up: the plain `engine._substep` loop looks the
 heightfield up every substep at the current geom positions, as the JAX XLA
@@ -176,7 +177,7 @@ def body_active_counts(model, act_g: Optional[torch.Tensor], act_p: Optional[tor
     device = device if act_g is None else act_g.device
     counts = torch.zeros(batch_shape + (model.nb,), dtype=torch.float32, device=device)
     if act_g is not None:
-        gb = torch.as_tensor(model.geom_body, device=device)
+        gb = torch.as_tensor(model.geom_body, dtype=torch.long, device=device)
         counts = counts.index_add(-1, gb, act_g.to(torch.float32))
     if act_p is not None:
         _, pgb, _, psb, _ = _pair_tables(model, device)
@@ -263,7 +264,7 @@ def contact_forces(
     ft, slip_new = stiction_force(slip, v_t, n, fn, mu, kt_el, ct, h, active)
 
     f_world = fn[..., None] * n + ft
-    gb = torch.as_tensor(model.geom_body, device=geom_pos_w.device)
+    gb = torch.as_tensor(model.geom_body, dtype=torch.long, device=geom_pos_w.device)
     lever = geom_pos_w - radius[..., None] * n - body_pos_w[..., gb, :]
     torque = spatial.cross(lever, f_world)
     shape = body_pos_w.shape
@@ -412,3 +413,23 @@ def pair_contact_forces(
         -2, sb, spatial.cross(lever_s, -f)
     )
     return torch.cat([body_torque, body_force], dim=-1), body_force, slip_new
+
+
+def anchor_forces(model, body_pos_w: torch.Tensor, body_R_w: torch.Tensor, body_lin_w: torch.Tensor,
+                  body_ang_w: torch.Tensor, h: float) -> torch.Tensor:
+    """World anchors: each pins the point `anchor_offset` (body frame) of its
+    `anchor_body` to the world point `anchor_target` (the reference's
+    translation attractors) by the stiffest spring-damper stable at the
+    substep h, f = -(0.2 m / h^2) d - (0.7 m / h) v with m = `anchor_meff`.
+    Returns f_ext (..., nb, 6) world [moment, force] about the body origins."""
+    ab = list(model.anchor_body)
+    p = body_pos_w[..., ab, :] + spatial.mv(body_R_w[..., ab, :, :], model.anchor_offset)
+    lever = p - body_pos_w[..., ab, :]
+    v = body_lin_w[..., ab, :] + spatial.cross(body_ang_w[..., ab, :], lever)
+    m = model.anchor_meff
+    kp = 0.2 * m / (h * h)
+    kd = 0.7 * m / h
+    f = -kp[..., None] * (p - model.anchor_target) - kd[..., None] * v
+    idx = torch.as_tensor(ab, dtype=torch.long, device=f.device)
+    zeros = torch.zeros(body_pos_w.shape, dtype=f.dtype, device=f.device)
+    return torch.cat([zeros.index_add(-2, idx, spatial.cross(lever, f)), zeros.index_add(-2, idx, f)], dim=-1)

@@ -5,11 +5,12 @@ control period of `substeps` substeps through one of three paths, which
 `_use_fused` picks:
 - "mono": `fused.fused_substep`, one CUDA kernel for all substeps (B1), for
   scenes without pairs, tendons or `no_ground`, on the plane or on a
-  heightfield, with per-env friction or without;
+  heightfield, with per-env friction or without, force sensors and a
+  per-body external wrench (`Control.body_wrench`) or without;
 - "split": `fused_split.split_substep`, a contacts kernel and a dynamics
   kernel per substep (B2 + B3), for scenes with pairs, tendons or
-  `no_ground` within the split tables' caps, with or without a per-body
-  external wrench (`Control.body_wrench`, B2's wrench mode);
+  `no_ground` within the split tables' caps, with world anchors, force
+  sensors and body wrenches or without;
 - None: the plain `_substep` loop below.
 A CUDA state on a kernel path launches the kernels; a CPU state runs their
 plain version, which is the `_substep` loop.
@@ -56,8 +57,7 @@ class Control:
     """Per-step actuation, held constant across substeps; arrays broadcast
     against (N, nd).  `body_wrench` (N, nb, 6) or None: an external wrench on
     each body, world frame, [moment, force] about the body origin, added to
-    f_ext after the contacts (the plain loop and the split pair; B1 has no
-    wrench mode yet)."""
+    f_ext after the contacts and anchors."""
 
     pos_target: torch.Tensor
     vel_target: torch.Tensor
@@ -171,10 +171,11 @@ def _geom_world(model: SimModel, kin):
 
 
 def _contacts(model: SimModel, terrain, kin, slip_g, slip_p, h: float):
-    """Ground and pair contacts at the poses of `kin` (kinematics.fk).
+    """Ground and pair contacts and world anchors at the poses of `kin`
+    (kinematics.fk).
 
     Returns (f_ext (N, nb, 6) world [moment, force] about each body origin,
-    contact_force (N, nb, 3), slip_g, slip_p)."""
+    contact_force (N, nb, 3) of the ground and pair contacts, slip_g, slip_p)."""
     body_pos_w, R_w, body_ang_w, body_lin_w, geom_pos_w, geom_vel_w = _geom_world(model, kin)
     act_g = None if model.no_ground else contact_mod.ground_active(model, terrain, geom_pos_w)
     act_p = contact_mod.pair_active(model, geom_pos_w, body_pos_w, R_w)
@@ -195,6 +196,8 @@ def _contacts(model: SimModel, terrain, kin, slip_g, slip_p, h: float):
         )
         f_ext = f_ext + f_pair
         body_cf = body_cf + cf_pair
+    if model.anchor_body:
+        f_ext = f_ext + contact_mod.anchor_forces(model, body_pos_w, R_w, body_lin_w, body_ang_w, h)
     return f_ext, body_cf, slip_g, slip_p
 
 
@@ -230,7 +233,8 @@ def _substep(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip_p, h: 
 
     Returns (q_new, qd_new, dof_force, contact_force, contact_torque, slip_g,
     slip_p, joint_wrench); joint_wrench is None without sensors.  The contact
-    torque is the moment of the contacts alone, without `ctrl.body_wrench`.
+    torque is the moment of the contacts and anchors, without
+    `ctrl.body_wrench`.
     """
     kin = kinematics.fk(model, q, qd)
     f_ext, body_cf, slip_g, slip_p = _contacts(model, terrain, kin, slip_g, slip_p, h)
@@ -249,18 +253,20 @@ def _substeps_plain(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip
     return q, qd, dof_force, cf, ct, slip_g, slip_p, jw
 
 
-def _check_supported(model: SimModel, terrain, ctrl: Control, kind: Optional[str], device_type: str) -> None:
+def _check_supported(model: SimModel, terrain, kind: Optional[str], device_type: str) -> None:
     """Raise on a scene that no path of the port runs as the JAX package does.
 
-    Heightfield terrain, per-env friction (`geom_friction` (N, ng)) and force
-    sensors run on B1 on the card and in the plain loop on the CPU.  On the
-    card a scene that does not go to B1 (`kind` "split", or None: over the
-    kernels' caps, or per-env leaves B1 does not take) raises instead of
-    quietly running the plain loop there.  The split pair has no sensor
-    output on either device, and B1 no body-wrench input (body wrenches run
-    on the split pair and in the plain loop)."""
+    Heightfield terrain and per-env friction (`geom_friction` (N, ng)) run on
+    B1 on the card and in the plain loop on the CPU; on the card a scene
+    that does not go to B1 (`kind` "split", or None: over the kernels' caps,
+    or per-env leaves B1 does not take) raises instead of quietly running
+    the plain loop there.  Force sensors run on B1 and on the split pair
+    (B3's sensor output); on the card they raise off both.  World anchors
+    run on the split pair and in the plain loop; B1 has no anchor mode yet,
+    so an anchored B1 scene raises on either device."""
     per_env_friction = model.geom_friction.ndim == 2
-    off_b1 = device_type != "cpu" and kind != "mono"
+    on_card = device_type != "cpu"
+    off_b1 = on_card and kind != "mono"
     unsupported = {
         "terrain other than a Heightfield": terrain is not None and not isinstance(terrain, contact_mod.Heightfield),
         "heightfield terrain off B1": off_b1 and terrain is not None,
@@ -268,11 +274,9 @@ def _check_supported(model: SimModel, terrain, ctrl: Control, kind: Optional[str
         "per-env friction with pair contacts": model.n_pairs and per_env_friction,
         "containment-wall surfaces": any(k not in (0, 1, 2, 3) for k in model.surf_kind),
         "SDF colliders": model.n_sdf,
-        "world anchors": model.anchor_body,
+        "world anchors on B1": kind == "mono" and model.anchor_body,
         "gravity compensation": model.body_gravcomp is not None,
-        "force sensors off B1": off_b1 and model.sensor_body,
-        "force sensors on the split pair": kind == "split" and model.sensor_body,
-        "body wrenches on B1": kind == "mono" and ctrl.body_wrench is not None,
+        "force sensors off the kernels": on_card and kind is None and model.sensor_body,
     }
     missing = [k for k, v in unsupported.items() if v]
     if missing:
@@ -312,7 +316,7 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
     path.  So does a CPU split scene with per-env friction: the split pair's
     plain version has neither mode."""
     kind = _use_fused(model, state.q)
-    _check_supported(model, terrain, ctrl, kind, state.q.device.type)
+    _check_supported(model, terrain, kind, state.q.device.type)
     if model.sensor_body and state.joint_wrench is None:
         # a state made before the model declared its sensors
         state = dataclasses.replace(state, joint_wrench=torch.zeros(
@@ -327,6 +331,7 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
     n = state.q.shape[0]
     nd = model.nd
     targets = (ctrl.pos_target.expand(n, nd), ctrl.vel_target.expand(n, nd), ctrl.effort.expand(n, nd))
+    bw = None if ctrl.body_wrench is None else ctrl.body_wrench.expand(n, model.nb, 6)
     if kind == "mono":
         from isaacgymenv_tpu_torch.physics import fused as fused_mod
 
@@ -335,17 +340,16 @@ def step(model: SimModel, terrain, state: SimState, ctrl: Control, dt: float, su
             held = contact_mod.held_ground(model, terrain, state.body_pos, state.body_quat)
             modes.update(ground_h=held.height, ground_n=held.normal)
         q, qd, dof_force, cf, ct, slip_g, jw = fused_mod.fused_substep(
-            fused_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, h, substeps, **modes
+            fused_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, h, substeps,
+            body_wrench=bw, **modes
         )
     elif kind == "split":
         from isaacgymenv_tpu_torch.physics import fused_split as split_mod
 
-        bw = None if ctrl.body_wrench is None else ctrl.body_wrench.expand(n, model.nb, 6)
-        q, qd, dof_force, cf, ct, slip_g, slip_p = split_mod.split_substep(
+        q, qd, dof_force, cf, ct, slip_g, slip_p, jw = split_mod.split_substep(
             split_mod.tables_for(model, state.q.device), state.q, state.qd, *targets, slip_g, slip_p, h, substeps,
             body_wrench=bw,
         )
-        jw = None
     else:
         q, qd, dof_force, cf, ct, slip_g, slip_p, jw = _substeps_plain(
             model, terrain, state.q, state.qd, ctrl, slip_g, slip_p, h, substeps

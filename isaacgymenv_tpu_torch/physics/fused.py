@@ -11,7 +11,10 @@ kernels) and loaded with ctypes.
 `fused_substep` is the wrapper: a CUDA state launches the kernel (or raises),
 a CPU state runs `fused_substep_plain`, the eager port of the XLA path
 (`engine._substep` looped `substeps` times).  `fused_substep.launches` counts
-kernel launches.
+kernel launches.  The kernel's optional modes are inputs, null when off: the
+held ground (`terrain_mode`), per-env friction (`fric_mode`) and the body
+wrenches (`wrench_mode`); its sensor output is written when the model has
+force sensors.  A scene may have no contact geoms (ng = 0).
 """
 
 from __future__ import annotations
@@ -95,9 +98,8 @@ def fused_structural_ok(model: SimModel, num_envs: int) -> bool:
     else takes the plain path.  The one per-env leaf the kernel takes is
     `geom_friction` (num_envs, ng) (`fric_mode`); every other model leaf must
     be shared by all envs.  Force sensors are an output of the kernel, up to
-    MAX_SENSORS bodies.  Features neither path has yet (pairs with per-env
-    friction, anchors, ...) are refused before this by
-    `engine._check_supported`."""
+    MAX_SENSORS bodies; body wrenches an input.  Features B1 has not yet
+    (anchors, ...) are refused before this by `engine._check_supported`."""
     if num_envs < 1:
         return False
     if any(jt not in (JT_FREE, JT_REVOLUTE, JT_PRISMATIC, JT_FIXED) for jt in model.jtype):
@@ -229,8 +231,9 @@ def from_minor(t: torch.Tensor, n: int, *shape) -> torch.Tensor:
 
 
 def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device address for a launch function; None gives NULL."""
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+    """A tensor's device address for a launch function; None and an empty
+    tensor (a zero-width table of a scene without geoms) give NULL."""
+    return ctypes.c_void_p(0 if t is None or t.numel() == 0 else t.data_ptr())
 
 
 def stream(dev) -> ctypes.c_void_p:
@@ -239,23 +242,28 @@ def stream(dev) -> ctypes.c_void_p:
 
 
 def fused_substep_plain(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float,
-                        substeps: int, ground_h=None, ground_n=None, geom_fric=None):
+                        substeps: int, ground_h=None, ground_n=None, geom_fric=None, body_wrench=None):
     """The kernel's plain version: `engine._substep` looped `substeps` times,
     with the kernel's semantics for its optional inputs: the ground height
     `ground_h` (N, ng) and normal `ground_n` (N, ng, 3) under each geom are
-    held across the substeps (None: the plane z = 0), and `geom_fric` (N, ng)
-    is the per-env friction (None: the model's `geom_friction`).
+    held across the substeps (None: the plane z = 0), `geom_fric` (N, ng)
+    is the per-env friction (None: the model's `geom_friction`), and
+    `body_wrench` (N, nb, 6), world [moment, force] about each body origin,
+    is added to f_ext after the contacts in every substep (None: none).
+    `slip_g` may be None for a scene without geoms.
 
     Returns (q, qd, dof_force, contact_force, contact_torque, slip_g,
-    joint_wrench): joint_wrench (N, ns, 6) is that of the last substep, None
-    when the model has no force sensors (`sensor_body`)."""
+    joint_wrench): the contact torque is the contacts' moment alone, without
+    the body wrench; joint_wrench (N, ns, 6) is that of the last substep,
+    None when the model has no force sensors (`sensor_body`)."""
     model = tables.model
     if geom_fric is not None:
         model = dataclasses.replace(model, geom_friction=geom_fric)
     terrain = None if ground_h is None else contact.HeldGround(ground_h, ground_n)
-    ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
+    ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort, body_wrench=body_wrench)
     out = engine._substeps_plain(model, terrain, q, qd, ctrl, slip_g, None, h, substeps)
-    return out[:6] + (out[7],)
+    # a scene without geoms has no slip state: `slip_g` back as given, as the kernel's wrapper returns it
+    return out[:5] + (out[5] if model.ng else slip_g, out[7])
 
 
 def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_substep") -> None:
@@ -267,14 +275,15 @@ def _check(name: str, t: torch.Tensor, shape, device, who: str = "fused_substep"
 
 
 def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, slip_g, h: float, substeps: int,
-                  ground_h=None, ground_n=None, geom_fric=None, probe=None):
+                  ground_h=None, ground_n=None, geom_fric=None, body_wrench=None, probe=None):
     """All `substeps` substeps of one control step; same outputs as
     `fused_substep_plain` (the sensor wrenches, None without sensors: the
     kernel writes them from the last substep's ABA).  A CUDA
     `q` launches the kernel; a CPU `q` runs the plain version.
 
-    `ground_h`/`ground_n` (terrain_mode) and `geom_fric` (fric_mode) are the
-    kernel's optional inputs, as `fused_substep_plain` reads them.  `probe`,
+    `ground_h`/`ground_n` (terrain_mode), `geom_fric` (fric_mode) and
+    `body_wrench` (wrench_mode) are the kernel's optional inputs, as
+    `fused_substep_plain` reads them.  `probe`,
     when given, is an (N, substeps, 2, ng) float32 CUDA tensor that the
     kernel fills, per substep and geom, with the ground depth ([:, s, 0],
     active where > 0) and f_mag - f_max of the Coulomb clamp ([:, s, 1],
@@ -286,7 +295,7 @@ def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, sl
         if probe is not None:
             raise ValueError("fused_substep: probe is an output of the kernel only")
         return fused_substep_plain(tables, q, qd, pos_target, vel_target, effort, slip_g, h, substeps,
-                                   ground_h, ground_n, geom_fric)
+                                   ground_h, ground_n, geom_fric, body_wrench)
     if q.device.type != "cuda":
         raise ValueError(f"fused_substep: unsupported device {q.device}")
     model = tables.model
@@ -299,14 +308,18 @@ def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, sl
     _check("qd", qd, (n, model.nv), dev)
     for name, t in (("pos_target", pos_target), ("vel_target", vel_target), ("effort", effort)):
         _check(name, t, (n, model.nd), dev)
-    _check("slip_g", slip_g, (n, model.ng, 3), dev)
+    if model.ng or slip_g is not None:
+        _check("slip_g", slip_g, (n, model.ng, 3), dev)
     for name, t, shape in (("ground_h", ground_h, (n, model.ng)), ("ground_n", ground_n, (n, model.ng, 3)),
-                           ("geom_fric", geom_fric, (n, model.ng)), ("probe", probe, (n, substeps, 2, model.ng))):
+                           ("geom_fric", geom_fric, (n, model.ng)), ("body_wrench", body_wrench, (n, model.nb, 6)),
+                           ("probe", probe, (n, substeps, 2, model.ng))):
         if t is not None:
             _check(name, t, shape, dev)
 
-    qT, qdT, tgtT, vtgT, effT, slipT = (to_minor(t, n) for t in (q, qd, pos_target, vel_target, effort, slip_g))
-    ghT, gnT, gfT = (None if t is None else to_minor(t, n) for t in (ground_h, ground_n, geom_fric))
+    qT, qdT, tgtT, vtgT, effT = (to_minor(t, n) for t in (q, qd, pos_target, vel_target, effort))
+    # a scene without geoms has no slip state: a null pointer the kernel never reads
+    slipT = None if not model.ng else to_minor(slip_g, n)
+    ghT, gnT, gfT, bwT = (None if t is None else to_minor(t, n) for t in (ground_h, ground_n, geom_fric, body_wrench))
     dof_force = torch.empty((model.nd, n), dtype=torch.float32, device=dev)
     cf = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
     ct = torch.empty((model.nb * 3, n), dtype=torch.float32, device=dev)
@@ -317,7 +330,8 @@ def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, sl
     with torch.cuda.device(dev):
         err = lib.fused_substep_launch(
             ptr(tables.table), ptr(qT), ptr(qdT), ptr(tgtT), ptr(vtgT), ptr(effT),
-            ptr(slipT), ptr(ghT), ptr(gnT), ptr(gfT), ptr(dof_force), ptr(cf), ptr(ct), ptr(jwT), ptr(probeT),
+            ptr(slipT), ptr(ghT), ptr(gnT), ptr(gfT), ptr(bwT), ptr(dof_force), ptr(cf), ptr(ct), ptr(jwT),
+            ptr(probeT),
             n, float(h), float(h * h), int(substeps), stream(dev),
         )
     if err != 0:
@@ -331,7 +345,7 @@ def fused_substep(tables: FusedTables, q, qd, pos_target, vel_target, effort, sl
         from_minor(dof_force, n, model.nd),
         from_minor(cf, n, model.nb, 3),
         from_minor(ct, n, model.nb, 3),
-        from_minor(slipT, n, model.ng, 3),
+        slip_g if slipT is None else from_minor(slipT, n, model.ng, 3),
         None if jwT is None else from_minor(jwT, n, ns, 6),
     )
 
@@ -374,7 +388,7 @@ def build_library(source: str = SOURCE) -> tuple[str, float, str]:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library()[0])
     fn = lib.fused_substep_launch
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int, ctypes.c_float, ctypes.c_float,
                                              ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib

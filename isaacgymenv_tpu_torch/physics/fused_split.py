@@ -18,8 +18,12 @@ in `.launches` and raise when a launch fails; a CPU state runs
 
 B2's wrench mode (`body_wrench=`, JAX `wrench_mode`): an external wrench
 per body (N, nb, 6), world frame, [moment, force] about the body origin,
-held across the substeps, which B2 adds to f_ext after the contacts; the
-contact torque it writes stays the contacts' moment alone.
+held across the substeps, which B2 adds to f_ext after the contacts and
+anchors; the contact torque it writes holds no wrench.  World anchors
+(`SimModel.anchor_body`, up to MAX_ANCHORS) travel in the table; B2 adds
+their spring-dampers after the pairs.  B3's sensor output: when the model
+has force sensors (`sensor_body`), the last substep's B3 launch writes each
+sensor body's inbound joint wrench from its ABA, as B1 does.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from isaacgymenv_tpu_torch.physics.types import SimModel
 SOURCE = os.path.join(fused.CSRC, "split_substep.cu")
 
 # compile-time caps of csrc/split_substep.cu (SP_MAX_*)
-MAX_PAIRS, MAX_TENDONS, MAX_TENDON_DOFS = 1024, 8, 4
+MAX_PAIRS, MAX_TENDONS, MAX_TENDON_DOFS, MAX_ANCHORS = 1024, 8, 4, 8
 
 # pair table slots (isaacgymenv_tpu/physics/fused_split.py:83-101)
 PI_G, PI_GB, PI_SB, PI_KIND, PI_N = 0, 1, 2, 3, 4
@@ -58,14 +62,20 @@ class SplitModel(ctypes.Structure):
         ("tendon_coef", ctypes.c_float * (MAX_TENDONS * MAX_TENDON_DOFS)),
         ("tendon_lo", ctypes.c_float * MAX_TENDONS), ("tendon_hi", ctypes.c_float * MAX_TENDONS),
         ("tendon_k", ctypes.c_float * MAX_TENDONS), ("tendon_d", ctypes.c_float * MAX_TENDONS),
+        ("na", ctypes.c_int),
+        ("anchor_body", ctypes.c_int * MAX_ANCHORS),
+        ("anchor_off", ctypes.c_float * (MAX_ANCHORS * 3)),
+        ("anchor_target", ctypes.c_float * (MAX_ANCHORS * 3)),
+        ("anchor_meff", ctypes.c_float * MAX_ANCHORS),
     ]
 
 
 def split_structural_ok(model: SimModel) -> bool:
-    """True when the scene's pairs and tendons fit the split tables' caps.
-    The joints and the FusedModel caps are `fused.fused_structural_ok`'s."""
+    """True when the scene's pairs, tendons and anchors fit the split tables'
+    caps.  The joints and the FusedModel caps are `fused.fused_structural_ok`'s."""
     return (model.n_pairs <= MAX_PAIRS and len(model.tendon_dof) <= MAX_TENDONS
-            and all(len(td) <= MAX_TENDON_DOFS for td in model.tendon_dof))
+            and all(len(td) <= MAX_TENDON_DOFS for td in model.tendon_dof)
+            and len(model.anchor_body) <= MAX_ANCHORS)
 
 
 def pack_pairs(model: SimModel) -> tuple[np.ndarray, np.ndarray]:
@@ -117,6 +127,13 @@ def pack_model(model: SimModel) -> SplitModel:
                 m.tendon_coef[t * MAX_TENDON_DOFS + j] = float(coef[t, j])
             m.tendon_lo[t], m.tendon_hi[t] = float(rng[t, 0]), float(rng[t, 1])
             m.tendon_k[t], m.tendon_d[t] = float(model.tendon_k[t]), float(model.tendon_d[t])
+    m.na = len(model.anchor_body)
+    if m.na:
+        m.anchor_body[: m.na] = [int(b) for b in model.anchor_body]
+        for name, t in (("anchor_off", model.anchor_offset), ("anchor_target", model.anchor_target),
+                        ("anchor_meff", model.anchor_meff)):
+            flat = t.detach().cpu().numpy().astype(np.float32).ravel()
+            getattr(m, name)[: flat.size] = flat.tolist()
     return m
 
 
@@ -152,14 +169,17 @@ def split_substep_plain(tables: SplitTables, q, qd, pos_target, vel_target, effo
                         h: float, substeps: int, body_wrench=None):
     """The kernel pair's plain version: `engine._substep` looped `substeps` times.
 
-    Returns (q, qd, dof_force, contact_force, contact_torque, slip_g, slip_p)."""
+    Returns (q, qd, dof_force, contact_force, contact_torque, slip_g, slip_p,
+    joint_wrench): joint_wrench (N, ns, 6) is the last substep's, None when
+    the model has no force sensors."""
     ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort, body_wrench=body_wrench)
-    return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, slip_p, h, substeps)[:7]
+    return engine._substeps_plain(tables.model, None, q, qd, ctrl, slip_g, slip_p, h, substeps)
 
 
 def contacts_plain(tables: SplitTables, q, qd, slip_g, slip_p, h: float, body_wrench=None):
     """B2's plain version: (f_ext (N, nb, 6), contact_force, contact_torque, slip_g, slip_p);
-    `body_wrench` (N, nb, 6) is added to f_ext and not to the contact torque."""
+    the contact torque is the moment of the contacts and anchors; `body_wrench`
+    (N, nb, 6) is added to f_ext and not to the contact torque."""
     model = tables.model
     f_ext, cf, slip_g, slip_p = engine._contacts(model, None, kinematics.fk(model, q, qd), slip_g, slip_p, h)
     ct = f_ext[..., :3]
@@ -169,10 +189,11 @@ def contacts_plain(tables: SplitTables, q, qd, slip_g, slip_p, h: float, body_wr
 
 
 def dynamics_plain(tables: SplitTables, q, qd, pos_target, vel_target, effort, f_ext, h: float):
-    """B3's plain version: (q, qd, dof_force)."""
+    """B3's plain version: (q, qd, dof_force, joint_wrench), joint_wrench
+    (N, ns, 6) None when the model has no force sensors."""
     model = tables.model
     ctrl = engine.Control(pos_target=pos_target, vel_target=vel_target, effort=effort)
-    return engine._dynamics(model, kinematics.fk(model, q, qd), q, qd, ctrl, f_ext, h)[:3]
+    return engine._dynamics(model, kinematics.fk(model, q, qd), q, qd, ctrl, f_ext, h)
 
 
 # ------------------------------------------------------------ the kernels
@@ -198,16 +219,18 @@ def launch_contacts(tables: SplitTables, qT, qdT, slip_gT, slip_pT, fext, cf, ct
     launch_contacts.launches += 1
 
 
-def launch_dynamics(tables: SplitTables, qT, qdT, tgtT, vtgT, effT, fext, dof_force, h: float) -> None:
+def launch_dynamics(tables: SplitTables, qT, qdT, tgtT, vtgT, effT, fext, dof_force, h: float,
+                    jwT=None) -> None:
     """One launch of B3 on env-minor CUDA tensors: q (nq, N) and qd (nv, N)
     updated in place from the targets (nd, N) and fext (6 nb, N); writes
-    dof_force (nd, N)."""
+    dof_force (nd, N) and, when given, jwT (6 ns, N): the sensor bodies'
+    joint wrenches of this launch's ABA (the sensor output)."""
     if qT.device.type != "cuda":
         raise ValueError(f"launch_dynamics: the kernel needs CUDA tensors, got {qT.device}")
     with torch.cuda.device(qT.device):
         err = _library().split_dynamics_launch(
             ptr(tables.table), ptr(qT), ptr(qdT), ptr(tgtT), ptr(vtgT), ptr(effT),
-            ptr(fext), ptr(dof_force), qT.shape[1], float(h), float(h * h), stream(qT.device),
+            ptr(fext), ptr(dof_force), ptr(jwT), qT.shape[1], float(h), float(h * h), stream(qT.device),
         )
     if err != 0:
         raise RuntimeError(f"split_dynamics kernel launch failed: CUDA error {err}")
@@ -222,7 +245,8 @@ def split_substep(tables: SplitTables, q, qd, pos_target, vel_target, effort, sl
                   h: float, substeps: int, body_wrench=None):
     """All `substeps` substeps of one control step; same outputs as
     `split_substep_plain`.  A CUDA `q` launches B2 and B3 once per substep
-    (B2 in its wrench mode when `body_wrench` (N, nb, 6) is given); a CPU `q`
+    (B2 in its wrench mode when `body_wrench` (N, nb, 6) is given; the last
+    B3 with its sensor output when the model has force sensors); a CPU `q`
     runs the plain version."""
     if q.device.type == "cpu":
         return split_substep_plain(tables, q, qd, pos_target, vel_target, effort, slip_g, slip_p, h, substeps,
@@ -252,9 +276,11 @@ def split_substep(tables: SplitTables, q, qd, pos_target, vel_target, effort, sl
     bwT = None if body_wrench is None else to_minor(body_wrench, n)
     empty = lambda k: torch.empty((k, n), dtype=torch.float32, device=dev)  # noqa: E731
     fext, cf, ct, dof_force = empty(6 * model.nb), empty(3 * model.nb), empty(3 * model.nb), empty(model.nd)
-    for _ in range(substeps):
+    ns = len(model.sensor_body)
+    jwT = empty(6 * ns) if ns else None
+    for s in range(substeps):
         launch_contacts(tables, qT, qdT, slip_gT, slip_pT, fext, cf, ct, h, bwT=bwT)
-        launch_dynamics(tables, qT, qdT, tgtT, vtgT, effT, fext, dof_force, h)
+        launch_dynamics(tables, qT, qdT, tgtT, vtgT, effT, fext, dof_force, h, jwT if s == substeps - 1 else None)
     return (
         from_minor(qT, n, model.nq),
         from_minor(qdT, n, model.nv),
@@ -263,6 +289,7 @@ def split_substep(tables: SplitTables, q, qd, pos_target, vel_target, effort, sl
         from_minor(ct, n, model.nb, 3),
         from_minor(slip_gT, n, model.ng, 3) if ground else slip_g,
         from_minor(slip_pT, n, model.n_pairs, 3) if model.n_pairs else slip_p,
+        None if jwT is None else from_minor(jwT, n, ns, 6),
     )
 
 
@@ -271,7 +298,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(fused.build_library(SOURCE)[0])
     lib.split_contacts_launch.argtypes = [ctypes.c_void_p] * 12 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    lib.split_dynamics_launch.argtypes = [ctypes.c_void_p] * 8 + [
+    lib.split_dynamics_launch.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     lib.split_contacts_launch.restype = ctypes.c_int
     lib.split_dynamics_launch.restype = ctypes.c_int

@@ -4,7 +4,8 @@
 
 For each ported slice (Anymal at 4096 envs, AnymalTerrain at 4096 on the
 full trimesh grid, ShadowHand at 16384, ShadowHandOpenAI_FF at 16384, Ant
-at 4096, the widths chip_smoke.py drives; or only the tasks named), runs the chip_smoke.py acting step (normalize obs ->
+at 4096, Quadcopter at 8192, BallBalance at 4096, the widths chip_smoke.py
+drives; or only the tasks named), runs the chip_smoke.py acting step (normalize obs ->
 ActorCritic -> sample actions -> env.step) for N_STEPS timed steps and
 reports, with the card's name and power limit:
 1. synchronized phase times: every phase ends in torch.cuda.synchronize(),
@@ -17,9 +18,11 @@ reports, with the card's name and power limit:
    kernel launches per step, and the kernels with the most device time.
 Then the training epoch of each trained slice, after one warm-up epoch:
 Ant at 4096 envs (`learning/ppo.py`, the configured horizon of 16 steps, 2
-minibatches x 4 mini-epochs) and ShadowHandOpenAI_FF at 16384 (horizon 8,
-8 minibatches x 8 mini-epochs for the actor and again for the central
-value); synchronized ms per epoch of the rollout, GAE and update over
+minibatches x 4 mini-epochs), ShadowHandOpenAI_FF at 16384 (horizon 8, 8
+minibatches x 8 mini-epochs for the actor and again for the central
+value), Quadcopter at 8192 (horizon 8, 4 minibatches x 8 mini-epochs) and
+BallBalance at 4096 (horizon 16, 4 minibatches x 8 mini-epochs);
+synchronized ms per epoch of the rollout, GAE and update over
 TRAIN_EPOCHS epochs, and a profiler window over one epoch (device busy,
 idle share, kernel launches).
 The last line is one JSON object with the same numbers per slice.
@@ -40,8 +43,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # (task, envs, make() overrides), as chip_smoke.py
 SLICES = (("Anymal", 4096, {}), ("AnymalTerrain", 4096, {"env.terrain.terrainType": "trimesh"}),
-          ("ShadowHand", 16384, {}), ("ShadowHandOpenAI_FF", 16384, {}), ("Ant", 4096, {}))
-TRAINED = (("Ant", 4096), ("ShadowHandOpenAI_FF", 16384))
+          ("ShadowHand", 16384, {}), ("ShadowHandOpenAI_FF", 16384, {}), ("Ant", 4096, {}),
+          ("Quadcopter", 8192, {}), ("BallBalance", 4096, {}))
+TRAINED = (("Ant", 4096), ("ShadowHandOpenAI_FF", 16384), ("Quadcopter", 8192), ("BallBalance", 4096))
 N_STEPS = 20
 TRAIN_EPOCHS = 5
 

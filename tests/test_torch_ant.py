@@ -33,7 +33,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from isaacgymenv_tpu.envs.ant import Ant as JaxAnt  # noqa: E402
 from isaacgymenv_tpu.envs.base import EnvState as JaxEnvState  # noqa: E402
@@ -176,7 +176,7 @@ def jax_env_step(envs, jax_physics):
     q[3, 2] = 0.2
     progress = np.where(np.isin(np.arange(N), [1, 6]), jax_env.max_episode_length - 3, 0).astype(np.int32)
     key = jax.random.PRNGKey(7)
-    ts = jax.device_get(jax_env._initial_ts(key))
+    ts = jax.device_get(compiled(jax_env._initial_ts, key)(key))
     jm = jax_env.model
     # the body caches are refreshed by the step's physics before any use
     sim = jax_types.make_zero_state(jm, N).replace(q=jnp.asarray(q), qd=jnp.asarray(qd))
@@ -225,14 +225,10 @@ def test_gate_sends_sensors_to_b1_and_refuses_them_off_it(envs):
     assert not fused.fused_structural_ok(dataclasses.replace(model, sensor_body=(1,) * (fused.MAX_SENSORS + 1)), N)
     table = fused.pack_model(model)
     assert table.ns == 4 and list(table.sensor_body[:4]) == [2, 4, 6, 8]
-    ctrl = engine.Control.zero(model, N)
-    engine._check_supported(model, None, ctrl, "mono", "cuda")
-    engine._check_supported(model, None, ctrl, None, "cpu")  # the plain loop has sensors
-    for kind in ("split", None):  # on the card only B1 has them
-        with pytest.raises(NotImplementedError, match="force sensors off B1"):
-            engine._check_supported(model, None, ctrl, kind, "cuda")
-    with pytest.raises(NotImplementedError, match="force sensors on the split pair"):
-        engine._check_supported(model, None, ctrl, "split", "cpu")
+    for kind, device in (("mono", "cuda"), ("split", "cuda"), (None, "cpu"), ("split", "cpu")):
+        engine._check_supported(model, None, kind, device)  # B1, B3 and the plain loop have sensors
+    with pytest.raises(NotImplementedError, match="force sensors off the kernels"):  # the plain loop on the card
+        engine._check_supported(model, None, None, "cuda")
     # the wrapper on a CPU state: the plain version, sensor wrenches last
     q, qd, effort = (torch.tensor(a) for a in _contact_state(port_env, 9))
     zero = torch.zeros_like(effort)

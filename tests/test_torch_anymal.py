@@ -31,7 +31,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from isaacgymenv_tpu.envs.anymal import Anymal as JaxAnymal  # noqa: E402
 from isaacgymenv_tpu.learning.networks import ActorCritic as JaxActorCritic  # noqa: E402
@@ -182,9 +182,9 @@ def test_env_steps_match_jax_with_injected_draws(envs, jax_physics):
     jax_env, port_env = envs
     key = jax.random.PRNGKey(5)
     # initial_state: key, k_ts, k_reset, k_dr = split(key, 4)  (envs/base.py)
-    jstate = _jax_compiled(jax_env.initial_state, key)(key)
-    tinit = port_env.initial_state(reset_draws={
-        k: torch.tensor(np.asarray(v)) for k, v in _jax_reset_draws(jax.random.split(key, 4)[2], jax_env).items()})
+    init = lambda k: (jax_env.initial_state(k), _jax_reset_draws(jax.random.split(k, 4)[2], jax_env))  # noqa: E731
+    jstate, draws = _jax_compiled(init, key)(key)
+    tinit = port_env.initial_state(reset_draws={k: torch.tensor(np.asarray(v)) for k, v in draws.items()})
     for field in ("q", "qd", "body_pos", "body_quat", "body_linvel"):
         _close(getattr(tinit.sim, field), getattr(jstate.sim, field), 1e-5, 1e-5, f"initial {field}")
     _close(tinit.ts["commands"], jstate.ts["commands"], 0, 0, "initial commands")

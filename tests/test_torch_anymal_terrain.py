@@ -35,7 +35,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from isaacgymenv_tpu.envs.anymal_terrain import AnymalTerrain as JaxAnymalTerrain  # noqa: E402
 from isaacgymenv_tpu.envs.base import EnvState as JaxEnvState  # noqa: E402
@@ -346,10 +346,10 @@ def test_gate_takes_terrain_to_b1_and_refuses_it_on_the_split_pair(envs):
     assert engine._use_fused(split, state.sim.q) == "split"
     # on the card, terrain or per-env friction off B1 (the split pair, or
     # kind None) raises; on the CPU the plain loop runs both
-    engine._check_supported(model, port_env.terrain, ctrl, "mono", "cuda")
+    engine._check_supported(model, port_env.terrain, "mono", "cuda")
     for kind in ("split", None):
         with pytest.raises(NotImplementedError, match="heightfield terrain off B1"):
-            engine._check_supported(model, port_env.terrain, ctrl, kind, "cuda")
+            engine._check_supported(model, port_env.terrain, kind, "cuda")
         with pytest.raises(NotImplementedError, match="per-env friction off B1"):
-            engine._check_supported(model, None, ctrl, kind, "cuda")
-        engine._check_supported(model, port_env.terrain, ctrl, kind, "cpu")
+            engine._check_supported(model, None, kind, "cuda")
+        engine._check_supported(model, port_env.terrain, kind, "cpu")

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from isaacgymenv_tpu.utils import config as jax_config  # noqa: E402
 from isaacgymenv_tpu_torch.physics import fused  # noqa: E402
@@ -56,7 +56,8 @@ def test_make_without_device_needs_cuda():
     ("task", "Anymal"), ("train", "AnymalPPO"), ("task", "ShadowHand"), ("train", "ShadowHandPPO"),
     ("task", "AnymalTerrain"), ("train", "AnymalTerrainPPO"), ("task", "Ant"), ("train", "AntPPO"),
     ("task", "ShadowHandOpenAI_LSTM"), ("task", "ShadowHandOpenAI_FF"), ("train", "ShadowHandPPOAsymm"),
-    ("train", "ShadowHandOpenAI_FFPPO"),
+    ("train", "ShadowHandOpenAI_FFPPO"), ("task", "BallBalance"), ("train", "BallBalancePPO"), ("task", "Quadcopter"),
+    ("train", "QuadcopterPPO"),
 ])
 def test_cfg_copy_parses_like_the_jax_package(kind, name):
     ours = port_config.load_yaml(os.path.join(port_config.CFG_ROOT, kind, f"{name}.yaml"))
@@ -84,16 +85,19 @@ def test_fused_gate(anymal_cpu):
     assert not fused.fused_structural_ok(dataclasses.replace(model, jtype=model.jtype[:-1] + (JT_FREE,)), 4096)
     many_geoms = dataclasses.replace(model, geom_body=model.geom_body * 2)
     assert not fused.fused_structural_ok(many_geoms, 4096)
-    # features neither path has are refused before the gate
+    # features the scene's path has not are refused before the gate: B1 has no anchors
     sim = anymal_cpu.initial_state(seed=0).sim
     ctrl = engine.Control.zero(model, anymal_cpu.num_envs)
-    for m, terrain, c in [
-        (model, object(), ctrl),
-        (model, None, dataclasses.replace(ctrl, body_wrench=torch.zeros(anymal_cpu.num_envs, model.nb, 6))),
-        (dataclasses.replace(model, anchor_body=(1,)), None, ctrl),
-    ]:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            engine.step(m, terrain, sim, c, 0.005, 2)
+    for m, terrain, match in [(model, object(), "terrain other than"),
+                              (dataclasses.replace(model, anchor_body=(1,)), None, "world anchors on B1")]:
+        with pytest.raises(NotImplementedError, match=f"not ported yet: {match}"):
+            engine.step(m, terrain, sim, ctrl, 0.005, 2)
+    # body wrenches go to B1 (its wrench mode); a CPU state runs its plain version
+    wrench = torch.zeros(anymal_cpu.num_envs, model.nb, 6)
+    wrench[:, 0, 5] = 50.0
+    pushed = engine.step(model, None, sim, dataclasses.replace(ctrl, body_wrench=wrench), 0.005, 2)
+    lift = pushed.body_linvel[:, 0, 2] - engine.step(model, None, sim, ctrl, 0.005, 2).body_linvel[:, 0, 2]
+    assert bool((lift > 0).all()), "50 N up on the base lifts it in every env"
     # force sensors go to B1 (its sensor output); a CPU state runs the plain loop
     sensed = dataclasses.replace(model, sensor_body=(1,))
     assert fused.fused_structural_ok(sensed, 4096) and engine._use_fused(sensed, sim.q) == "mono"

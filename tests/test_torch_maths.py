@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from isaacgymenv_tpu.ops import maths as jm  # noqa: E402
 from isaacgymenv_tpu.physics import spatial as js  # noqa: E402
 from isaacgymenv_tpu_torch.ops import maths as tm  # noqa: E402
 from isaacgymenv_tpu_torch.physics import spatial as ts  # noqa: E402
+from tests.jax_reference import compiled  # noqa: E402
 
 N = 64
 
@@ -46,7 +47,9 @@ MATHS = {
     "quat_conjugate": (lambda r: (_quat(r),), 0.0),
     "quat_unit": (lambda r: ((2.0 * _quat(r)).astype(np.float32),), 1e-5),
     "quat_apply": (lambda r: (_quat(r), _vec(r)), 1e-5),
+    "quat_rotate": (lambda r: (_quat(r), _vec(r)), 1e-5),
     "quat_rotate_inverse": (lambda r: (_quat(r), _vec(r)), 1e-5),
+    "quat_axis": (lambda r: (_quat(r), 2), 1e-5),
     "quat_to_rotmat": (lambda r: (_quat(r),), 1e-5),
     "rotmat_to_quat": (lambda r: (_rotmat(r),), 5e-5),
     "quat_integrate": (lambda r: (_quat(r), _vec(r, 3.0), 0.005), 1e-5),
@@ -75,8 +78,23 @@ SPATIAL = {
 }
 
 
+def _jax(fn, args):
+    """fn on args as one compiled JAX program (tests/jax_reference.py), the
+    non-array arguments bound."""
+    arrays = [i for i, a in enumerate(args) if isinstance(a, np.ndarray)]
+
+    def bound(*xs):
+        full = list(args)
+        for i, x in zip(arrays, xs):
+            full[i] = x
+        return fn(*full)
+
+    xs = [jnp.asarray(args[i]) for i in arrays]
+    return compiled(bound, *xs)(*xs)
+
+
 def _compare(jfn, tfn, args, tol):
-    want = jfn(*[jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args])
+    want = _jax(jfn, args)
     got = tfn(*[torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in args])
     want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
     assert len(got) == len(want)
@@ -96,7 +114,7 @@ def test_maths_matches_jax(name):
 def test_spatial_matches_jax(name):
     # 6x6 products of O(10) entries: 1e-5 relative, 1e-4 absolute
     args = SPATIAL[name](np.random.default_rng(11))
-    want = np.asarray(getattr(js, name)(*[jnp.asarray(a) for a in args]))
+    want = np.asarray(_jax(getattr(js, name), args))
     got = getattr(ts, name)(*[torch.as_tensor(a) for a in args]).numpy()
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)

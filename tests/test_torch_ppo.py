@@ -8,8 +8,10 @@ minibatch permutations injected; and the same for the asymmetric
 actor-critic of ShadowHandOpenAI_FF (obs 42, states 211): the central value
 network, GAE on its values, and one `_update` with its own 2 mini-epochs
 and permutations, from a state whose Adam moments (both networks') JAX's
-first update made.  The JAX learner is built on an object that only
-carries the env's sizes: no JAX env is built here.  The CLI runs the port
+first update made.  Every train config the port ships is read into the
+learner's config as JAX's `PPO` reads it.  The JAX learner
+is built on an object that only carries the env's sizes: no JAX env is
+built here.  The CLI runs the port
 alone: Ant at 8 envs on the CPU for 2 epochs, then a resume from the
 checkpoint it wrote; ShadowHandOpenAI_FF at 8 envs for one epoch, then a
 resume.
@@ -34,13 +36,14 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from isaacgymenv_tpu.learning import networks as jax_networks  # noqa: E402
 from isaacgymenv_tpu.learning.ppo import PPO as JaxPPO  # noqa: E402
 from isaacgymenv_tpu.learning.ppo import TrainState as JaxTrainState  # noqa: E402
 from isaacgymenv_tpu.learning.running_stats import RunningStats as JaxRunningStats  # noqa: E402
 from isaacgymenv_tpu.utils import config as jax_config  # noqa: E402
+from tests.jax_reference import compiled as _jax_compiled  # noqa: E402
 
 import isaacgymenv_tpu_torch  # noqa: E402
 from isaacgymenv_tpu_torch import interop, train  # noqa: E402
@@ -54,11 +57,6 @@ N, H, OBS, ACT = 8, 4, 60, 8
 def _close(got, want, rtol, atol, what=""):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
     np.testing.assert_allclose(got, np.asarray(want), rtol=rtol, atol=atol, err_msg=what)
-
-
-def _jax_compiled(fn, *args):
-    """fn jitted and compiled at XLA backend optimization level 0."""
-    return jax.jit(fn).lower(*args).compile(compiler_options={"xla_backend_optimization_level": 0})
 
 
 class _Sizes:
@@ -85,25 +83,30 @@ def learners():
     params = jax.tree_util.tree_map(lambda a: (0.1 * rng.normal(size=a.shape)).astype(np.float32), shapes)
     params["params"]["log_std"] = (0.2 * rng.normal(size=ACT) - 0.7).astype(np.float32)
     f32 = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
-    obs_stats = JaxRunningStats.create((OBS,)).update(jnp.asarray(f32(64, OBS) * 2.0 + 0.5))
-    value_stats = JaxRunningStats.create(()).update(jnp.asarray(f32(64) * 3.0 + 1.0))
-    jts = JaxTrainState(
-        params=params, opt_state=jagent.tx.init(params), obs_stats=obs_stats, value_stats=value_stats,
-        lr=jnp.asarray(3e-3, jnp.float32), env_state=None, last_obs=jnp.asarray(f32(N, OBS) * 2.0),
-        key=jax.random.PRNGKey(5), epoch=jnp.asarray(0, jnp.int32), ep_return=jnp.zeros(N), ep_length=jnp.zeros(N),
-        mean_return=jnp.zeros(()), mean_length=jnp.zeros(()),
-    )
 
-    @jax.jit
+    def state(params, obs_batch, value_batch, last_obs):
+        return JaxTrainState(
+            params=params, opt_state=jagent.tx.init(params), obs_stats=JaxRunningStats.create((OBS,)).update(obs_batch),
+            value_stats=JaxRunningStats.create(()).update(value_batch), lr=jnp.asarray(3e-3, jnp.float32),
+            env_state=None, last_obs=last_obs, key=jax.random.PRNGKey(5), epoch=jnp.asarray(0, jnp.int32),
+            ep_return=jnp.zeros(N), ep_length=jnp.zeros(N), mean_return=jnp.zeros(()), mean_length=jnp.zeros(()),
+        )
+
+    inputs = (params, f32(64, OBS) * 2.0 + 0.5, f32(64) * 3.0 + 1.0, f32(N, OBS) * 2.0)
+    jts = _jax_compiled(state, *inputs)(*inputs)  # one program instead of many eager ones
+    obs_stats, value_stats = jts.obs_stats, jts.value_stats
+
     def rollout_batch(params, obs, eps):
         mu, log_std, value_n = jagent.network.apply(params, obs_stats.normalize(obs))
         action = mu + jnp.exp(log_std) * eps
         return {"obs": obs, "action": action, "logp": jax_networks.gaussian_logp(mu, log_std, action),
                 "value": value_stats.denormalize(value_n), "mu": mu, "log_std": log_std}
 
-    batch = dict(rollout_batch(params, jnp.asarray(f32(H, N, OBS) * 2.0), jnp.asarray(f32(H, N, ACT))))
+    inputs = (params, jnp.asarray(f32(H, N, OBS) * 2.0), jnp.asarray(f32(H, N, ACT)))
+    batch = dict(_jax_compiled(rollout_batch, *inputs)(*inputs))
     batch["reward"] = jnp.asarray(f32(H, N))
     batch["done"] = jnp.asarray(rng.random((H, N)) < 0.2)
+    jgae = _jax_compiled(jagent._gae, jts, batch)
 
     port_env = isaacgymenv_tpu_torch.make(task="Ant", num_envs=N, device="cpu")
     agent = PPO(port_env, cfg)
@@ -111,7 +114,7 @@ def learners():
     ts = interop.train_state_from_jax(agent, params, stats(obs_stats), stats(value_stats), np.asarray(jts.lr))
     ts = dataclasses.replace(ts, last_obs=torch.tensor(np.asarray(jts.last_obs)))
     tbatch = {k: torch.tensor(np.asarray(v)) for k, v in batch.items()}
-    return jagent, jts, batch, agent, ts, tbatch
+    return jagent, jts, batch, jgae, agent, ts, tbatch
 
 
 OBS_SH, ACT_SH, STATES_SH = 42, 20, 211  # ShadowHandOpenAI_FF
@@ -157,17 +160,22 @@ def cv_learners():
     params["params"]["log_std"] = (0.2 * rng.normal(size=ACT_SH) - 0.7).astype(np.float32)
     cv_params = seeded(jax.eval_shape(jagent.cv_network.init, jax.random.PRNGKey(0), jnp.zeros((1, STATES_SH))), 0.05)
     f32 = lambda *s: rng.normal(size=s).astype(np.float32)  # noqa: E731
-    obs_stats = JaxRunningStats.create((OBS_SH,)).update(jnp.asarray(f32(64, OBS_SH) * 2.0 + 0.5))
-    states_stats = JaxRunningStats.create((STATES_SH,)).update(jnp.asarray(f32(64, STATES_SH) * 3.0 - 0.5))
-    value_stats = JaxRunningStats.create(()).update(jnp.asarray(f32(64) * 3.0 + 1.0))
-    jts = JaxTrainState(
-        params=params, opt_state=jagent.tx.init(params), obs_stats=obs_stats, value_stats=value_stats,
-        lr=jnp.asarray(3e-3, jnp.float32), env_state=None, last_obs=jnp.asarray(f32(N, OBS_SH) * 2.0),
-        key=jax.random.PRNGKey(31), epoch=jnp.asarray(0, jnp.int32), ep_return=jnp.zeros(N),
-        ep_length=jnp.zeros(N), mean_return=jnp.zeros(()), mean_length=jnp.zeros(()),
-        cv_params=cv_params, cv_opt_state=jagent.cv_tx.init(cv_params), states_stats=states_stats,
-        last_states=jnp.asarray(f32(N, STATES_SH) * 3.0),
-    )
+
+    def state(params, cv_params, obs_batch, states_batch, value_batch, last_obs, last_states):
+        return JaxTrainState(
+            params=params, opt_state=jagent.tx.init(params),
+            obs_stats=JaxRunningStats.create((OBS_SH,)).update(obs_batch),
+            value_stats=JaxRunningStats.create(()).update(value_batch), lr=jnp.asarray(3e-3, jnp.float32),
+            env_state=None, last_obs=last_obs, key=jax.random.PRNGKey(31), epoch=jnp.asarray(0, jnp.int32),
+            ep_return=jnp.zeros(N), ep_length=jnp.zeros(N), mean_return=jnp.zeros(()), mean_length=jnp.zeros(()),
+            cv_params=cv_params, cv_opt_state=jagent.cv_tx.init(cv_params),
+            states_stats=JaxRunningStats.create((STATES_SH,)).update(states_batch), last_states=last_states,
+        )
+
+    inputs = (params, cv_params, f32(64, OBS_SH) * 2.0 + 0.5, f32(64, STATES_SH) * 3.0 - 0.5, f32(64) * 3.0 + 1.0,
+              f32(N, OBS_SH) * 2.0, f32(N, STATES_SH) * 3.0)
+    jts = _jax_compiled(state, *inputs)(*inputs)  # one program instead of many eager ones
+    obs_stats, states_stats, value_stats = jts.obs_stats, jts.states_stats, jts.value_stats
 
     def rollout_batch(params, cv_params, obs, states, eps):
         mu, log_std, _ = jagent.network.apply(params, obs_stats.normalize(obs))
@@ -214,8 +222,8 @@ def test_gaussian_functions_match_jax():
 
 
 def test_gae_matches_jax(learners):
-    jagent, jts, batch, agent, ts, tbatch = learners
-    want_adv, want_ret = jax.jit(jagent._gae)(jts, batch)
+    jagent, jts, batch, jgae, agent, ts, tbatch = learners
+    want_adv, want_ret = jgae(jts, batch)
     adv, ret = agent._gae(ts, tbatch)
     assert bool(np.asarray(batch["done"]).any()), "episode ends must cut the recursion"
     _close(adv, want_adv, 1e-6, 1e-5, "advantages")
@@ -223,9 +231,9 @@ def test_gae_matches_jax(learners):
 
 
 def test_update_from_carried_state_matches_jax(learners):
-    jagent, jts, batch, agent, ts, tbatch = learners
+    jagent, jts, batch, jgae, agent, ts, tbatch = learners
     assert agent.num_minibatches == jagent.num_minibatches == 2
-    advs, returns = jax.jit(jagent._gae)(jts, batch)
+    advs, returns = jgae(jts, batch)
     want_ts, want = _jax_compiled(jagent._update, jts, batch, advs, returns)(jts, batch, advs, returns)
     # JAX's permutations: per mini-epoch, key, k_perm = split(key); permutation(k_perm, B)
     key, perms = jts.key, []
@@ -419,6 +427,21 @@ def test_learner_config_and_refusals():
         PPO(env, lstm)
     with pytest.raises(ValueError, match="not divisible"):
         PPO(env, cfg)  # 16 x 8 envs against minibatches of 32768
+
+
+@pytest.mark.parametrize("task,name", [
+    ("Anymal", None), ("AnymalTerrain", None), ("ShadowHand", None), ("ShadowHand", "ShadowHandPPOAsymm"),
+    ("ShadowHandOpenAI_FF", None), ("BallBalance", None), ("Quadcopter", None),
+])
+def test_learner_config_matches_jax(task, name):
+    """The learner reads each train config the port ships (Ant's in
+    `test_learner_config_and_refusals`) field by field as JAX's `PPO` does."""
+    cfg = config.load_train_config(task, name)
+    assert cfg == jax_config.load_train_config(task, name)
+    ours, ref = PPOConfig.from_train_cfg(cfg), jax.device_get(JaxPPO(_Sizes(), cfg).cfg)
+    for f in dataclasses.fields(ours):
+        assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+    assert ours.normalize_value and ours.value_bootstrap and ours.lr_schedule == "adaptive"
 
 
 def test_cli_trains_shadow_hand_openai_with_central_value(tmp_path, monkeypatch):

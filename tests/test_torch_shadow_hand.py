@@ -40,7 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 from isaacgymenv_tpu.envs.base import EnvState as JaxEnvState  # noqa: E402
 from isaacgymenv_tpu.envs.shadow_hand import ShadowHand as JaxShadowHand  # noqa: E402
@@ -49,7 +49,7 @@ from isaacgymenv_tpu.physics import contact as jax_contact  # noqa: E402
 from isaacgymenv_tpu.physics import engine as jax_engine  # noqa: E402
 from isaacgymenv_tpu.physics.types import make_zero_state as jax_zero_state  # noqa: E402
 from isaacgymenv_tpu.utils.config import load_task_config as jax_task_config  # noqa: E402
-from tests.jax_reference import env_step, substep_chain  # noqa: E402
+from tests.jax_reference import compiled, env_step, substep_chain  # noqa: E402
 
 import isaacgymenv_tpu_torch  # noqa: E402
 from isaacgymenv_tpu_torch import interop  # noqa: E402
@@ -81,6 +81,7 @@ def jax_physics(envs):
     def run_any(s, c, dt, substeps):
         return run(s, c if c.body_wrench is not None else c.replace(body_wrench=zero_wrench), dt, substeps)
 
+    run_any.model, run_any.forward = run.model, run.forward
     return run_any
 
 
@@ -309,7 +310,7 @@ def test_env_steps_match_jax_with_injected_draws(envs, jax_physics):
     qd[:] = 0.0
     jm = jax_env.model
     key = jax.random.PRNGKey(7)
-    ts = jax_env._initial_ts(key)
+    ts = dict(compiled(jax_env._initial_ts, key)(key))
     # env 0's goal is its cube's orientation: it reaches it at step 1 and
     # takes a goal-only reset at step 2; envs 4-7 time out at step 1 and are
     # reset at step 2
@@ -384,7 +385,7 @@ def test_openai_env_steps_with_forces_and_states_match_jax(openai_envs, jax_phys
     qa = jm.q_adr[jax_env.object_body]
     q[:, qa + 3:qa + 7] = maths.quat_mul(torch.tensor(q[:, qa + 3:qa + 7]), _cube_rotations(N)).numpy()
     key = jax.random.PRNGKey(13)
-    ts = jax_env._initial_ts(key)
+    ts = dict(compiled(jax_env._initial_ts, key)(key))
     # a force probability per env from 0.05 to 0.9, and a decaying force already on envs 0-3
     ts["force_prob"] = jnp.linspace(0.05, 0.9, N)
     rb = np.zeros((N, 3), np.float32)
@@ -422,7 +423,8 @@ def test_openai_env_steps_with_forces_and_states_match_jax(openai_envs, jax_phys
     torch_of = lambda d: {k: torch.tensor(np.asarray(v)) for k, v in d.items()}  # noqa: E731
     fired, resets = np.zeros(N, bool), []
     # the first obs dict of each package: obs and states without a step
-    _close(port_env.observations(tstate)["states"], jax_env.observations(jstate)["states"], 2e-3, 5e-3, "states")
+    _close(port_env.observations(tstate)["states"], compiled(jax_env.observations, jstate)(jstate)["states"],
+           2e-3, 5e-3, "states")
     for i in range(2):
         actions = np.clip(hold + rng.uniform(-0.1, 0.1, size=(N, 20)), -1.0, 1.0).astype(np.float32)
         prob = np.asarray(jstate.ts["force_prob"])
@@ -477,23 +479,22 @@ def test_dispatch_rule(envs):
     over = fused_split.MAX_PAIRS // m.n_pairs + 1
     many_pairs = dataclasses.replace(m, pair_geom=m.pair_geom * over, pair_surf=m.pair_surf * over)
     assert engine._use_fused(many_pairs, q_hand) is None
-    # features neither path has raise
+    # features neither path has raise; sensors run on the split pair (B3's sensor output)
     ctrl = engine.Control.zero(m, N)
     sim = types.make_zero_state(m, N)
-    for bad in (
-        dataclasses.replace(m, anchor_body=(26,)),
-        dataclasses.replace(m, body_gravcomp=torch.ones(m.nb)),
-        dataclasses.replace(m, sensor_body=(7,)),
-    ):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            engine.step(bad, None, sim, ctrl, 0.01, 2)
+    with pytest.raises(NotImplementedError, match="not ported yet: gravity compensation"):
+        engine.step(dataclasses.replace(m, body_gravcomp=torch.ones(m.nb)), None, sim, ctrl, 0.01, 2)
+    sensed = engine.step(dataclasses.replace(m, sensor_body=(7,)), None, sim, ctrl, 0.01, 2)
+    assert tuple(sensed.joint_wrench.shape) == (N, 1, 6)
     for key, value in (("env.observationType", "full"), ("env.objectType", "egg")):
         with pytest.raises(NotImplementedError, match="ported"):
             isaacgymenv_tpu_torch.make(task="ShadowHand", num_envs=N, device="cpu", **{key: value})
-    # body wrenches run on the split pair and the plain loop; B1 has no wrench mode
-    wrench = dataclasses.replace(ctrl, body_wrench=torch.zeros(N, anymal.model.nb, 6))
-    with pytest.raises(NotImplementedError, match="body wrenches on B1"):
-        engine.step(anymal.model, None, anymal.initial_state().sim, wrench, 0.01, 2)
+    # body wrenches run on both kernels; world anchors on the split pair, not on B1
+    wrench = dataclasses.replace(engine.Control.zero(anymal.model, N), body_wrench=torch.zeros(N, anymal.model.nb, 6))
+    engine.step(anymal.model, None, anymal.initial_state().sim, wrench, 0.01, 2)
+    anchored = dataclasses.replace(anymal.model, anchor_body=(1,))
+    with pytest.raises(NotImplementedError, match="world anchors on B1"):
+        engine.step(anchored, None, anymal.initial_state().sim, ctrl, 0.01, 2)
     if not torch.cuda.is_available():  # no device means "cuda", never a silent CPU
         with pytest.raises(RuntimeError, match="CUDA"):
             isaacgymenv_tpu_torch.make(task="ShadowHand", num_envs=N)
@@ -511,7 +512,8 @@ def test_split_wrapper_runs_plain_version_on_cpu(envs):
     out = fused_split.split_substep(tables, *args)
     ref = fused_split.split_substep_plain(tables, *args)
     assert (fused_split.launch_contacts.launches, fused_split.launch_dynamics.launches) == before
-    for a, b in zip(out, ref):
+    assert out[7] is None and ref[7] is None  # no force sensors
+    for a, b in zip(out[:7], ref[:7]):
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_split.split_substep(tables, q.to("meta"), *args[1:])
@@ -532,7 +534,8 @@ def test_split_wrapper_with_body_wrench_runs_plain_version_on_cpu(envs):
     out = fused_split.split_substep(tables, *args, body_wrench=wrench)
     ref = fused_split.split_substep_plain(tables, *args, body_wrench=wrench)
     assert (fused_split.launch_contacts.launches, fused_split.launch_dynamics.launches) == before
-    for a, b in zip(out, ref):
+    assert out[7] is None and ref[7] is None  # no force sensors
+    for a, b in zip(out[:7], ref[:7]):
         assert torch.equal(a, b)
     assert not torch.equal(out[0], fused_split.split_substep(tables, *args)[0]), "the wrench is applied"
     # B2's plain version alone: the wrench in f_ext, not in the contact torque
