@@ -91,9 +91,25 @@ Phases (each raises on failure; the script then exits non-zero):
    100 acting steps with the [128, 64, 32] policy (B2 and B3 each 4 times
    per step); the env step against the CPU at 128 envs from the ball on the
    tray; the training CLI (`task=BallBalance`, 64 + 64 launches per epoch);
-12. the `kernels` JSON line (B1 once per mode set: flat, terrain + friction,
-   sensors, wrench; B2, B2 in wrench mode, B2 with anchors; B3, B3 with its
-   sensor output), the card line, and the final ok line.
+12. the FrankaCubeStack slice: B2 in its gravcomp mode + B3 (the arm on
+   effort drive, the fingers on position drive) against `split_substep_plain`
+   at 8192 envs from the cubes settled on the table and the fingers at cube
+   A (40 acting steps of a reaching command from the env's own start; the
+   compared step closes the gripper), with
+   the count witness at both substeps' starts and each kernel alone; B2
+   alone on every compensated body without contact, whose f_ext must be
+   -gravcomp m g at its world COM; B1's gravcomp mode on the Franka alone
+   (no pairs, B1's scene) at 8192 envs against `fused_substep_plain`, the
+   scene without gravity compensation bit for bit equal to all-zero
+   gravcomp; 100 acting steps with the [256, 128, 64] policy (B2 and B3
+   twice per step, the OSC on the host side of the step); the env step
+   against the CPU at 128 envs from the env's own start, with the count
+   witness replayed over every recorded physics step; the training CLI
+   (`task=FrankaCubeStack`, 32 + 32 launches per epoch);
+13. the `kernels` JSON line (B1 once per mode set: flat, terrain + friction,
+   sensors, wrench, gravcomp; B2, B2 in wrench mode, B2 with anchors, B2 in
+   gravcomp mode; B3, B3 with its sensor output), the card line, and the
+   final ok line.
 """
 
 from __future__ import annotations
@@ -210,8 +226,10 @@ def sensor_flops(model) -> int:
 def fused_substep_flops(model, n: int, substeps: int, terrain: bool = False, wrench: bool = False) -> int:
     """fp32 operations that csrc/fused_substep.cu performs for one launch
     (the sensor output when the model has sensors; in wrench mode one add
-    per body wrench entry and substep)."""
-    extra = (TERRAIN_GROUND_EXTRA * model.ng if terrain else 0) + (6 * model.nb if wrench else 0)
+    per body wrench entry and substep; the gravity compensation of each
+    compensated body per substep)."""
+    extra = (TERRAIN_GROUND_EXTRA * model.ng if terrain else 0) + (6 * model.nb if wrench else 0) \
+        + GRAVCOMP_FLOPS * gravcomp_bodies(model)
     return (sum(_stage_flops(model).values()) + extra) * substeps * n + sensor_flops(model) * n
 
 
@@ -242,17 +260,27 @@ PAIR_FORCE_FLOPS = 170                                            # lever .. acc
 ANCHOR_FLOPS = MV3 + CROSS3 + 4 + 18 + CROSS3 + 6
 
 
+# csrc/substep_common.cuh gravcomp_wrench, per compensated body: the force
+# -gc_mass g, the world COM R com, its moment and the accumulation
+GRAVCOMP_FLOPS = 3 + MV3 + CROSS3 + 6
+
+
+def gravcomp_bodies(model) -> int:
+    """The bodies whose gravity is compensated (gravcomp != 0)."""
+    return 0 if model.body_gravcomp is None else int((model.body_gravcomp != 0).sum())
+
+
 def split_contacts_flops(model, n: int, wrench: bool = False) -> int:
     """fp32 operations that one launch of B2 (split_contacts_kernel) performs:
     FK, the ground passes unless `no_ground`, two surface queries plus one
     force evaluation per pair (box queries counted on their outside branch)
-    and the world anchors; in wrench mode one add per body wrench entry (6
-    per body)."""
+    the world anchors and the gravity compensation of each compensated body;
+    in wrench mode one add per body wrench entry (6 per body)."""
     st = _stage_flops(model)
     pairs = sum(2 * (PAIR_QUERY_FLOPS + CLOSEST_FLOPS[model.surf_kind[s]]) + 3 + PAIR_FORCE_FLOPS
                 for s in model.pair_surf)
     ground = model.nb * 2 if model.no_ground else st["ground"]
-    anchors = ANCHOR_FLOPS * len(model.anchor_body)
+    anchors = ANCHOR_FLOPS * len(model.anchor_body) + GRAVCOMP_FLOPS * gravcomp_bodies(model)
     return (st["fk"] + ground + pairs + anchors + (6 * model.nb if wrench else 0)) * n
 
 
@@ -666,12 +694,18 @@ def phase_slice(task: str, n_envs: int, expected: dict, card: str, overrides=Non
 
 
 @torch.no_grad()
-def phase_slice_vs_plain(task: str, tols: dict, n: int = 128, steps: int = 2, seed_state=None) -> None:
+def phase_slice_vs_plain(task: str, tols: dict, n: int = 128, steps: int = 2, seed_state=None,
+                         witness: bool = False) -> None:
     """The env step on the card (kernels) against the CPU (plain), same inputs.
     `seed_state(env, n)` -> (q, qd) replaces the initial q and qd when given.
     `tols` names the outputs held: obs, rew, done, q, contact_force, states
-    or an entry of the task state."""
+    or an entry of the task state.  With `witness` (a split scene), every
+    `engine.step` call is recorded and `split_step_witness` excuses the envs
+    whose live contact counts differ between the card and the CPU at some
+    substep's start with a pair at its threshold, at most
+    MAX_THRESHOLD_SHARE of them."""
     import isaacgymenv_tpu_torch
+    from isaacgymenv_tpu_torch.physics import engine
 
     envs = {d: isaacgymenv_tpu_torch.make(task, num_envs=n, device=d) for d in ("cuda", "cpu")}
     cpu = envs["cpu"]
@@ -681,17 +715,27 @@ def phase_slice_vs_plain(task: str, tols: dict, n: int = 128, steps: int = 2, se
     actions = [torch.rand((n, cpu.num_actions), generator=gen) * 2 - 1 for _ in range(steps)]
     seeded = seed_state(cpu, n) if seed_state else None
     to = lambda draws, dev: {k: v.to(dev) for k, v in draws.items()}  # noqa: E731
-    outs = {}
+    outs, records, step = {}, {}, engine.step
     for d, env in envs.items():
         state = env.initial_state(reset_draws=to(reset_draws[0], env.device))
         if seeded is not None:
             sim = dataclasses.replace(state.sim, q=seeded[0].to(env.device), qd=seeded[1].to(env.device))
             state = dataclasses.replace(state, sim=sim)
-        for i in range(steps):
-            state, obs, rew, done, _ = env.step(
-                state, actions[i].to(env.device), reset_draws=to(reset_draws[i + 1], env.device),
-                step_draws=to(step_draws[i], env.device),
-            )
+        calls = records[d] = []
+
+        def recording(model, terrain, sim, ctrl, dt, substeps=2, calls=calls):
+            calls.append((sim, ctrl, dt, substeps))
+            return step(model, terrain, sim, ctrl, dt, substeps)
+
+        engine.step = recording if witness else step
+        try:
+            for i in range(steps):
+                state, obs, rew, done, _ = env.step(
+                    state, actions[i].to(env.device), reset_draws=to(reset_draws[i + 1], env.device),
+                    step_draws=to(step_draws[i], env.device),
+                )
+        finally:
+            engine.step = step
         outs[d] = {"obs": obs["obs"].cpu(), "rew": rew.cpu(), "done": done.cpu(), "q": state.sim.q.cpu(),
                    "contact_force": state.sim.contact_force.cpu()}
         if "states" in obs:
@@ -704,8 +748,18 @@ def phase_slice_vs_plain(task: str, tols: dict, n: int = 128, steps: int = 2, se
         print(f"{task} env.step cuda vs cpu: {forced} of {n} envs carry an object force after {steps} steps")
         if forced == 0:
             raise AssertionError(f"{task}: no object force fired; the wrench path is not exercised")
+    keep = torch.ones(n, dtype=torch.bool)
+    if witness:
+        flips = split_step_witness(envs, records)
+        keep = ~flips
+        print(f"{task} env.step cuda vs cpu: count witness over {len(records['cpu'])} physics steps, {int(flips.sum())} "
+              f"of {n} envs whose live contact counts differ at a substep's start (each with a pair within "
+              f"{THRESHOLD_EPS} m of its threshold), left out of the comparison")
+        if int(flips.sum()) > MAX_THRESHOLD_SHARE * n:
+            raise AssertionError(f"{task}: {int(flips.sum())} envs with counts that differ; more than "
+                                 f"{MAX_THRESHOLD_SHARE} of them")
     for label, (rtol, atol) in tols.items():
-        a, b = outs["cuda"][label].float(), outs["cpu"][label].float()
+        a, b = outs["cuda"][label].float()[keep], outs["cpu"][label].float()[keep]
         err = float((a - b).abs().max())
         if not torch.allclose(a, b, rtol=rtol, atol=atol):
             raise AssertionError(f"{task}: env.step on the card disagrees with the CPU plain path: "
@@ -1187,7 +1241,7 @@ def check_wrench_mode(label: str, out, bw) -> float:
 def phase_split_vs_plain(env, wrench: bool = False, state=cube_on_palm_state, sensor_tol=None,
                          contacts_alone: bool = True, name: str = "") -> dict:
     """B2 + B3 against `split_substep_plain` at the slice's width from
-    `state(env, n, seed)` -> (q, qd, pos_target, slip_p), and each kernel
+    `state(env, n, seed)` -> (q, qd, pos_target, slip_p[, effort]), and each kernel
     alone against its own plain version; timings and bounds.  With `wrench`,
     every call carries the task-like body wrenches of `task_wrench` (B2's
     wrench mode) and B3 alone is not repeated.  A model with force sensors
@@ -1200,7 +1254,7 @@ def phase_split_vs_plain(env, wrench: bool = False, state=cube_on_palm_state, se
     dev, model = env.device, env.model
     n, h = env.num_envs, env.dt / env.substeps
     tables = fused_split.tables_for(model, dev)
-    q, qd, tgt, slip_p = (t.to(dev) for t in state(env, n, seed=1))
+    q, qd, tgt, slip_p, *eff = (t.to(dev) for t in state(env, n, seed=1))
     bw = task_wrench(env, q, seed=5) if wrench else None
     b2 = "B2 (wrench mode)" if wrench else "B2"
     label = f"{b2} + B3{name}"
@@ -1208,7 +1262,7 @@ def phase_split_vs_plain(env, wrench: bool = False, state=cube_on_palm_state, se
     tols = {**SPLIT_TOLS, "joint_wrench": sensor_tol if ns else None}
     zero = torch.zeros_like(tgt)
     slip_g = torch.zeros((n, model.ng, 3), device=dev)
-    ctl = (tgt, zero, zero)
+    ctl = (tgt, zero, eff[0] if eff else zero)
     args = (q, qd, *ctl, slip_g, slip_p, h, env.substeps)
     if wrench:
         carrying = int((bw != 0).any(-1).any(-1).sum())
@@ -1307,18 +1361,18 @@ def phase_split_vs_plain(env, wrench: bool = False, state=cube_on_palm_state, se
         f_ext = c_ref[0]
         d_ref = fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h)
         qT, qdT = to_minor(q, n), to_minor(qd, n)
-        tgtT, zT, fextT = (to_minor(t, n) for t in (tgt, zero, f_ext))
+        tgtT, zT, effT, fextT = (to_minor(t, n) for t in (tgt, zero, ctl[2], f_ext))
         dof_force = torch.empty((model.nd, n), device=dev)
         jwT = torch.empty((6 * ns, n), device=dev) if ns else None
         q2, qd2 = qT.clone(), qdT.clone()
-        fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h, jwT)
+        fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, effT, fextT, dof_force, h, jwT)
         d_out = (from_minor(q2, n, model.nq), from_minor(qd2, n, model.nv), from_minor(dof_force, n, model.nd),
                  None if jwT is None else from_minor(jwT, n, ns, 6))
         d_tols = {"q": SPLIT_TOLS["q"], "qd": SPLIT_TOLS["qd"], "dof_force": SPLIT_TOLS["dof_force"],
                   "joint_wrench": tols["joint_wrench"]}
         d_err = _compare(f"split_dynamics (B3{name})", d_out, d_ref, d_tols)
         print(f"B3{name} alone vs dynamics_plain: max abs err {d_err}")
-        d_ms = cuda_ms(lambda: fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, zT, fextT, dof_force, h, jwT))
+        d_ms = cuda_ms(lambda: fused_split.launch_dynamics(tables, q2, qd2, tgtT, zT, effT, fextT, dof_force, h, jwT))
         d_plain = cuda_ms(lambda: fused_split.dynamics_plain(tables, q, qd, *ctl, f_ext, h), warmup=1, runs=5)
         d_bytes = tables.table.numel() + 4 * n * (
             2 * (model.nq + model.nv)              # q, qd in and out
@@ -1539,6 +1593,209 @@ def phase_hand_sensors_vs_plain(env) -> dict:
     return out
 
 
+FRANKA_ENVS = 8192     # FrankaCubeStack (cfg/task/FrankaCubeStack.yaml)
+FRANKA_REACH_STEPS = 40
+# B2's f_ext on a compensated body without contact is its gravcomp wrench:
+# within this share of the body's largest entry (a few fp32 roundings of
+# R com, the cross product and the scaling, in another order than torch's)
+GRAVCOMP_RTOL = 1e-6
+
+
+def franka_reach_actions(env, state, grasp: bool = False) -> torch.Tensor:
+    """(N, 7) OSC actions toward 3 cm above cube A's center (the grip site
+    0.5 cm above its top face): a proportional position command, saturated
+    at the action limit, no turn; the gripper open, or closing with `grasp`."""
+    cube_a, _, eef_pos, _ = env._scene_state(state)
+    target = cube_a[:, 0:3] + torch.tensor([0.0, 0.0, 0.03], device=env.device)
+    actions = torch.zeros((env.num_envs, env.num_actions), device=env.device)
+    actions[:, 0:3] = torch.clamp(10.0 * (target - eef_pos), -1.0, 1.0)
+    actions[:, -1] = -1.0 if grasp else 1.0
+    return actions
+
+
+@torch.no_grad()
+def franka_reach_state(env, n: int, seed: int, steps: int = FRANKA_REACH_STEPS):
+    """FrankaCubeStack q, qd, finger targets, slip_p and arm efforts on the
+    env's device after `steps` acting steps from its own start (`seed`), the
+    grip site driven toward cube A by `franka_reach_actions` with the gripper
+    open: the cubes have settled onto the table (cube B out of its 1 cm spawn
+    depth) and the fingers straddle cube A.  The targets and efforts are
+    those of the next step, the grasp: the OSC torques and the fingers
+    closing at their drives' effort limit.  The rollout runs on the env's
+    own path (the kernels on the card)."""
+    if env.num_envs != n:
+        raise ValueError(f"franka_reach_state: the env has {env.num_envs} envs, not {n}")
+    state = env.initial_state(seed=seed)
+    for _ in range(steps):
+        state, *_ = env.step(state, franka_reach_actions(env, state))
+    ctrl, _ = env._make_control(state, franka_reach_actions(env, state, grasp=True), {})
+    return state.sim.q, state.sim.qd, ctrl.pos_target, state.sim.slip_p, ctrl.effort
+
+
+def contact_free_bodies(model, q, qd) -> torch.Tensor:
+    """(N, nb) bool: bodies with no live ground or pair contact at (q, qd),
+    as the plain version decides them."""
+    from isaacgymenv_tpu_torch.physics import contact, engine, kinematics
+
+    body_pos, R_w, _, _, geom_pos, _ = engine._geom_world(model, kinematics.fk(model, q, qd))
+    live = torch.zeros((q.shape[0], model.nb), device=q.device)
+    index = lambda t: torch.as_tensor(t, device=q.device)  # noqa: E731
+    gb = index(model.geom_body)
+    if not model.no_ground:
+        live.index_add_(1, gb, contact.ground_active(model, None, geom_pos).to(live.dtype))
+    act_p = contact.pair_active(model, geom_pos, body_pos, R_w).to(live.dtype)
+    live.index_add_(1, gb[index(model.pair_geom)], act_p)
+    live.index_add_(1, index(model.surf_body)[index(model.pair_surf)], act_p)
+    return live == 0
+
+
+def check_gravcomp_free_bodies(env, reach) -> dict:
+    """B2 alone at the reach state: on every gravity-compensated body without
+    contact its f_ext must be the compensation alone, -gravcomp m g at the
+    world COM (`engine.gravcomp_wrench` on the same poses), within
+    GRAVCOMP_RTOL of the body's largest entry; and its contact torque the
+    same moment."""
+    from isaacgymenv_tpu_torch.physics import engine, fused_split, kinematics
+
+    model, dev, n = env.model, env.device, env.num_envs
+    q, qd, _, slip_p = reach[:4]
+    h = env.dt / env.substeps
+    tables = fused_split.tables_for(model, dev)
+    f_ext, _, ct, *_ = contacts_kernel(tables, q, qd, torch.zeros((n, model.ng, 3), device=dev), slip_p, h)
+    want = engine.gravcomp_wrench(model, torch.stack(kinematics.fk(model, q, qd).R_w, dim=-3))
+    free = contact_free_bodies(model, q, qd)
+    # the compensated bodies with mass; the massless ones (frames of the URDF) get nothing
+    held = free & (model.body_gravcomp * model.body_mass != 0)
+    massless = free & (model.body_gravcomp * model.body_mass == 0)
+    size = want.abs().amax(-1, keepdim=True)
+    err = ((f_ext - want).abs()[held] / size[held])
+    ct_err = ((ct - want[..., :3]).abs()[held] / size[held])
+    if held.sum() < n:
+        raise AssertionError(f"only {int(held.sum())} compensated bodies without contact; the check needs one per env")
+    if f_ext[massless].any() or ct[massless].any():
+        raise AssertionError("B2 gravcomp mode: a wrench on a contact-free body without compensated mass")
+    worst = max(float(err.max()), float(ct_err.max()))
+    print(f"B2 gravcomp mode alone: f_ext and contact torque of {int(held.sum())} compensated bodies without contact "
+          f"equal -gravcomp m g at the world COM within {worst:.3g} of each body's largest entry "
+          f"(limit {GRAVCOMP_RTOL}); |f_ext| up to {float(size.max()):.4g}; exactly 0 on {int(massless.sum())} "
+          f"contact-free bodies without compensated mass")
+    if not worst <= GRAVCOMP_RTOL:
+        raise AssertionError(f"B2's f_ext on contact-free compensated bodies is not their gravcomp wrench: "
+                             f"{worst:.3g} of the body's largest entry")
+    return {"bodies_held": int(held.sum()), "max_rel_err": worst}
+
+
+def franka_arm_model(device, gravcomp: bool = True):
+    """The Franka of FrankaCubeStack alone (its URDF, stand pose, drives and
+    gravity compensation; no table, stand or cubes, so no pairs: B1's
+    scene); without `gravcomp` its `body_gravcomp` is None."""
+    from isaacgymenv_tpu_torch.envs import franka_cube_stack as fcs
+    from isaacgymenv_tpu_torch.physics.meff import attach_effective_masses
+
+    fb, _ = fcs.franka_builder()
+    if not gravcomp:
+        for b in fb.bodies:
+            b.gravcomp = 0.0
+    return attach_effective_masses(fb.finalize()).to(device)
+
+
+def phase_gravcomp_kernel_vs_plain(dev, fused, n: int = FRANKA_ENVS) -> dict:
+    """B1's gravcomp mode on `franka_arm_model` at `n` envs, 2 substeps of
+    FrankaCubeStack's dt, the arm on random efforts and the fingers on
+    position targets, against `fused_substep_plain` at the tolerances of
+    tests/test_fused.py; nothing touches the ground, so the contact force
+    must be exactly 0 and the contact torque is the gravcomp moment; the
+    scene without gravity compensation (`body_gravcomp` None) bit for bit
+    equal to one with all-zero gravcomp, and apart from the compensated
+    one; both timed."""
+    from isaacgymenv_tpu_torch.envs import franka_cube_stack as fcs
+    from isaacgymenv_tpu_torch.physics import engine
+
+    model = franka_arm_model(dev)
+    if engine._use_fused(model, torch.zeros((n, model.nq), device=dev)) != "mono":
+        raise AssertionError("the Franka alone does not go to B1")
+    engine._check_supported(model, None, "mono", "cuda")
+    rng = np.random.default_rng(3)
+    lo, hi = model.dof_lower.cpu().numpy(), model.dof_upper.cpu().numpy()
+    q = np.clip(np.asarray(fcs.FRANKA_DEFAULT) + 0.25 * rng.uniform(-1, 1, (n, model.nd)), lo, hi)
+    q[:, 7:] = rng.uniform(0.0, 0.04, (n, 2))
+    qd = 0.5 * rng.normal(size=(n, model.nv))
+    tgt = np.zeros((n, model.nd))
+    tgt[:, 7:] = rng.uniform(0.0, 0.04, (n, 2))
+    eff = np.zeros((n, model.nd))
+    eff[:, :7] = 0.5 * model.dof_effort[:7].cpu().numpy() * rng.uniform(-1, 1, (n, 7))
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    q, qd, tgt, eff = f(q), f(qd), f(tgt), f(eff)
+    substeps, h = 2, 0.01667 / 2  # cfg/task/FrankaCubeStack.yaml
+    zero = torch.zeros_like(tgt)
+    args = (q, qd, tgt, zero, eff, torch.zeros((n, model.ng, 3), device=dev), h, substeps)
+    tables = fused.tables_for(model, dev)
+    out = fused.fused_substep(tables, *args)
+    ref = fused.fused_substep_plain(tables, *args)
+    torch.cuda.synchronize()
+    max_err = _compare("fused_substep (B1, gravcomp mode)", out, ref, TOLS)
+    if float(out[3].abs().max()) != 0.0:
+        raise AssertionError("B1 gravcomp mode: a contact force on the Franka alone, which touches nothing")
+    moment = float(out[4].abs().max())
+    bare = franka_arm_model(dev, gravcomp=False)
+    if bare.body_gravcomp is not None:
+        raise AssertionError("the Franka without gravity compensation still has body_gravcomp")
+    unforced = fused.fused_substep(fused.tables_for(bare, dev), *args)
+    zeroed = dataclasses.replace(bare, body_gravcomp=torch.zeros(bare.nb, device=dev))
+    zero_gc = fused.fused_substep(fused.build_tables(zeroed, dev), *args)
+    if not all(torch.equal(a, b) for a, b in zip(unforced[:6], zero_gc[:6])):
+        raise AssertionError("B1 with an all-zero gravcomp differs from B1 without gravity compensation")
+    sag = float((unforced[0] - out[0]).abs().max())
+    print(f"B1 gravcomp mode vs plain at {n} envs on the Franka alone ({gravcomp_bodies(model)} compensated bodies, "
+          f"{substeps} substeps): max abs err {max_err}; contact force exactly 0, contact torque (the gravcomp "
+          f"moment) up to {moment:.4g} N m; gravity compensation moves q by up to {sag:.4g} rad; all-zero gravcomp "
+          f"equals none, bit for bit")
+    if sag < 1e-5 or moment < 1e-3:
+        raise AssertionError("the gravity compensation does not act on B1's scene")
+    ms = cuda_ms(lambda: fused.fused_substep(tables, *args))
+    plain_ms = cuda_ms(lambda: fused.fused_substep_plain(tables, *args), warmup=1, runs=5)
+    b = bound(fused_substep_bytes(model, n), fused_substep_flops(model, n, substeps))
+    print(f"fused_substep (gravcomp mode): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound: {b['bytes']} bytes -> "
+          f"{b['bytes_ms']:.5f} ms, {b['flops']} fp32 ops -> {b['ops_ms']:.5f} ms")
+    return {"max_abs_err": max(max_err.values()), "max_err": max_err, "ms": ms, "plain_ms": plain_ms, **b}
+
+
+def split_step_witness(envs: dict, records: dict) -> torch.Tensor:
+    """The count witness of an env step of a split scene on the card against
+    the CPU: every `engine.step` call recorded on each device, replayed one
+    substep at a time (the card's by the kernels, the CPU's by the plain
+    version: the same arithmetic as the step's own), B2's live counts at each
+    substep's start on the card against the plain counts on the CPU.  Raises
+    where counts differ without a pair within THRESHOLD_EPS of its threshold
+    on either side.  Returns (n,) bool on the CPU: the envs whose counts
+    differed at some substep's start."""
+    from isaacgymenv_tpu_torch.physics import fused_split
+
+    card, cpu = envs["cuda"], envs["cpu"]
+    t_card, t_cpu = fused_split.tables_for(card.model, card.device), fused_split.tables_for(cpu.model, "cpu")
+    n = cpu.num_envs
+    flips = torch.zeros(n, dtype=torch.bool)
+    for i, ((ks, kc, dt, subs), (ps, pc, _, _)) in enumerate(zip(records["cuda"], records["cpu"])):
+        h = dt / subs
+        states = []
+        for st, m in ((ks, card.model), (ps, cpu.model)):
+            slip_g = st.slip_g if st.slip_g is not None else torch.zeros((n, m.ng, 3), device=st.q.device)
+            states.append((st.q, st.qd, slip_g, st.slip_p))
+        ctl = [tuple(t.expand(n, cpu.model.nd) for t in (c.pos_target, c.vel_target, c.effort)) for c in (kc, pc)]
+        k, p = states
+        for s in range(subs):
+            flip = (contacts_kernel(t_card, *k, h)[-1].cpu() != counts_plain(cpu.model, *p[:2])).any(-1)
+            near = near_threshold(card.model, *k[:2]).cpu() | near_threshold(cpu.model, *p[:2])
+            _check_flips(f"env step {i + 1}, substep {s + 1}", flip, near)
+            flips |= flip
+            ko = fused_split.split_substep(t_card, k[0], k[1], *ctl[0], k[2], k[3], h, 1, body_wrench=kc.body_wrench)
+            po = fused_split.split_substep_plain(t_cpu, p[0], p[1], *ctl[1], p[2], p[3], h, 1,
+                                                 body_wrench=pc.body_wrench)
+            k, p = (ko[0], ko[1], ko[5], ko[6]), (po[0], po[1], po[5], po[6])
+    return flips
+
+
+
 def build_all() -> None:
     """Both kernel libraries, one nvcc call each, started together."""
     from isaacgymenv_tpu_torch.physics import fused, fused_split
@@ -1657,6 +1914,24 @@ def main() -> int:
     phase_slice_vs_plain("BallBalance", {"obs": (0, 1e-3), "rew": (1e-3, 1e-4), "done": (0, 0), "q": (5e-4, 5e-4),
                                          "dof_targets": (0, 0)}, seed_state=on_tray)
     ball_training = phase_train(card, "BallBalance", BALL_ENVS, SMALL_TRAIN_EPOCHS, split4)
+    torch.cuda.empty_cache()
+
+    # FrankaCubeStack: B2's gravcomp mode + B3 (the arm on effort drive) from
+    # the cubes settled on the table and the fingers closing on cube A, B2 alone on
+    # the contact-free compensated bodies, B1's gravcomp mode on the Franka
+    # alone, the acting step, the env step against the CPU with the count
+    # witness, training
+    env = isaacgymenv_tpu_torch.make("FrankaCubeStack", num_envs=FRANKA_ENVS)
+    reach = franka_reach_state(env, FRANKA_ENVS, seed=1)
+    k23g = phase_split_vs_plain(env, state=lambda env, n, seed: reach, name=" (FrankaCubeStack)")
+    gravcomp_free = check_gravcomp_free_bodies(env, reach)
+    del env, reach
+    k1g = phase_gravcomp_kernel_vs_plain(torch.device("cuda"), fused)
+    torch.cuda.empty_cache()
+    franka = phase_slice("FrankaCubeStack", FRANKA_ENVS, split, card)
+    phase_slice_vs_plain("FrankaCubeStack", {"obs": (2e-3, 5e-3), "rew": (1e-3, 1e-4), "done": (0, 0),
+                                             "q": (5e-4, 5e-4), "gripper_targets": (0, 0)}, witness=True)
+    franka_training = phase_train(card, "FrankaCubeStack", FRANKA_ENVS, SMALL_TRAIN_EPOCHS, split)
 
     kernels = [
         kernel_entry("fused_substep", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
@@ -1685,6 +1960,14 @@ def main() -> int:
         kernel_entry("split_dynamics_sensors", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
                      "isaacgymenv_tpu/physics/fused_split.py:755", ball["split_dynamics"], k23a["split_dynamics"],
                      "sensor output (BallBalance: the tray)"),
+        kernel_entry("split_contacts_gravcomp", "isaacgymenv_tpu_torch/csrc/split_substep.cu",
+                     "isaacgymenv_tpu/physics/fused_split.py:350", franka["split_contacts"], k23g["split_contacts"],
+                     "gravity compensation, flat ground, pairs (FrankaCubeStack: 16 compensated bodies)"),
+        # no task sends a compensated scene to B1 (every one has pairs): its
+        # main path launches it no time, the witness scene does
+        kernel_entry("fused_substep_gravcomp", "isaacgymenv_tpu_torch/csrc/fused_substep.cu",
+                     "isaacgymenv_tpu/physics/fused.py:430", 0, k1g,
+                     "gravity compensation (the Franka alone, a witness scene)"),
     ]
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s of wall time, the builds "
           f"included")
@@ -1693,7 +1976,9 @@ def main() -> int:
                       "sensors_fixed_joint_scene": k1q, "split_pair_anchors": k23a["pair"],
                       "split_sensors_hand": {"pair": k3h["pair"], "split_dynamics": k3h["split_dynamics"]},
                       "training": training, "training_hand": hand_training, "training_quadcopter": quad_training,
-                      "training_ball_balance": ball_training}))
+                      "training_ball_balance": ball_training, "split_pair_gravcomp": k23g["pair"],
+                      "split_dynamics_franka": k23g["split_dynamics"], "gravcomp_free_bodies": gravcomp_free,
+                      "training_franka": franka_training}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

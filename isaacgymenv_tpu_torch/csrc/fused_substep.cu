@@ -4,8 +4,10 @@
 // for the scenes that isaacgymenv_tpu_torch/physics/fused.py:fused_structural_ok
 // accepts: free roots + revolute/prismatic/fixed joints, DRIVE_* dof drives
 // with limits/friction/armature, sphere contacts against the ground with the
-// stiction slip carry (none when the scene has no geoms), force sensors and
-// per-body external wrenches, no pairs/anchors/tendons.  The ground is the
+// stiction slip carry (none when the scene has no geoms), force sensors,
+// per-body gravity compensation (the table's gc_mass, added after the
+// contacts and held in the contact torque, fused.py:975-992) and per-body
+// external wrenches, no pairs/anchors/tendons.  The ground is the
 // plane z = 0, or a heightfield sampled by the caller once per control step
 // (terrain_mode: per-geom height and normal, held across the substeps as the
 // TPU kernel holds them); friction is the table's or per env (fric_mode); the
@@ -97,7 +99,9 @@ FS_HD static void fused_env(const FusedModel& M, const EnvIO& io, int e, int n,
         for (int i = 0; i < nb; ++i) share[i] = 1.0f / fmaxf(share[i], 1.0f);
         float* probe = io.probe ? io.probe + (size_t)step * 2 * M.ng * n : nullptr;
         ground_forces(M, kin, io.ground, share, io.slip, e, n, h, hh, fext, cf, probe);
-        if (step == substeps - 1)  // the last substep's contacts, before any body wrench
+        // gravity compensation, in the contact torque (fused.py:975-992)
+        gravcomp_wrench(M, kin, fext);
+        if (step == substeps - 1)  // the last substep's contacts and gravcomp, before any body wrench
             for (int b = 0; b < nb; ++b)
                 for (int k = 0; k < 3; ++k) {
                     io.contact_force[(size_t)(3 * b + k) * n + e] = cf[b][k];

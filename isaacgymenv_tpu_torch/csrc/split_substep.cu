@@ -6,17 +6,19 @@
 // isaacgymenv_tpu_torch/physics/fused_split.py:split_structural_ok accepts:
 // B1's joints and drives (substep_common.cuh), flat-ground or `no_ground`
 // scenes, body-vs-body pair contacts of spheres against sphere, box, capsule
-// and capped-cylinder surfaces, world anchors, fixed tendons, B2's wrench
-// mode (an optional external wrench per body, `bw`) and B3's sensor output
-// (an optional `joint_wrench`).  No gravity compensation, terrain or
-// per-env model leaves.
+// and capped-cylinder surfaces, world anchors, per-body gravity compensation
+// (the table's gc_mass), fixed tendons, B2's wrench mode (an optional
+// external wrench per body, `bw`) and B3's sensor output (an optional
+// `joint_wrench`).  No terrain or per-env model leaves.
 //
 // B2: FK -> pass 1 counts the live contacts per body (ground geoms, then a
 // rolled loop over the pair table) -> pass 2 divides each contact's
 // effective-mass budget by its bodies' counts and accumulates the forces
 // per body (ground, then pairs) -> the world anchors' spring-dampers
-// (fused_split.py:705-723) -> writes the contact force and torque (the
-// torque is the moment of the contacts and anchors), then adds the body
+// (fused_split.py:705-723) -> gravity compensation, -gravcomp m g at each
+// compensated body's COM (fused_split.py:724-735) -> writes the contact
+// force and torque (the torque is the moment of the contacts, anchors and
+// gravity compensation), then adds the body
 // wrench when `bw` is given (wrench mode, the order of
 // fused_split.py:742-749: the contact torque holds no wrench) and writes the
 // world external wrench f_ext per body; the slip states are updated in
@@ -280,11 +282,13 @@ FS_HD static void contacts_env(const SplitModel& S, const int* pint, const float
         anchor_force(kin.Rw[b], kin.pw[b], kin.wang[b], kin.wlin[b], S.anchor_off[a], S.anchor_target[a],
                      S.anchor_meff[a], h, hh, fext[b]);
     }
+    // gravity compensation, after the anchors (fused_split.py:724-735)
+    gravcomp_wrench(M, kin, fext);
 
     for (int b = 0; b < nb; ++b) {
         for (int c = 0; c < 3; ++c) {
             io.cf[(size_t)(3 * b + c) * n + e] = cf[b][c];
-            io.ct[(size_t)(3 * b + c) * n + e] = fext[b][c];  // contacts and anchors, before the wrench
+            io.ct[(size_t)(3 * b + c) * n + e] = fext[b][c];  // contacts, anchors, gravcomp; before the wrench
         }
         for (int c = 0; c < 6; ++c) {
             float v = fext[b][c];

@@ -66,6 +66,8 @@ struct FusedModel {
     float kn, kd, kt;                  // contact stiffness, damping, tangential
     float limit_k, limit_d, fric_eps;  // engine passive-force constants
     float max_angvel, max_linvel;      // free-root velocity clamps
+    float gc_mass[FS_MAX_BODIES];      // gravcomp * mass; 0: the body keeps its gravity
+    float com[FS_MAX_BODIES][3];       // body-frame centre of mass
 };
 
 // ---------------------------------------------------------------- 3-vectors
@@ -401,6 +403,30 @@ FS_HD static inline void anchor_force(const float* R, const float* p, const floa
     for (int c = 0; c < 3; ++c) {
         fext6[c] += tq[c];
         fext6[3 + c] += f[c];
+    }
+}
+
+// ------------------------------------------------------ gravity compensation
+
+// Per-body gravity compensation (engine.gravcomp_wrench; the asset's
+// disable_gravity): the force -gc_mass g at the world COM R com, added to
+// fext as world [moment, force] about the body origin for every body whose
+// gc_mass is not 0 (a body with gc_mass 0 is skipped, as the TPU kernels skip
+// gravcomp == 0, so a scene without it does no extra arithmetic).  The
+// callers add it before they store the contact torque, which holds it
+// (fused.py:975-992, fused_split.py:724-735).  Shared by B1 and B2.
+FS_HD static inline void gravcomp_wrench(const FusedModel& M, const Kin& k, float (*fext)[6]) {
+    for (int b = 0; b < M.nb; ++b) {
+        const float gc = M.gc_mass[b];
+        if (gc == 0.0f) continue;
+        float f[3], com_w[3], tq[3];
+        for (int c = 0; c < 3; ++c) f[c] = -gc * M.gravity[c];
+        mv3(k.Rw[b], M.com[b], com_w);
+        cross3(com_w, f, tq);
+        for (int c = 0; c < 3; ++c) {
+            fext[b][c] += tq[c];
+            fext[b][3 + c] += f[c];
+        }
     }
 }
 

@@ -10,7 +10,7 @@ _REGISTRY: Dict[str, Callable] = {}
 # (module, registry name) of the ported tasks
 _TASKS = [("anymal", "Anymal"), ("anymal_terrain", "AnymalTerrain"), ("shadow_hand", "ShadowHand"),
           ("shadow_hand", "ShadowHandOpenAI_LSTM"), ("ant", "Ant"), ("ball_balance", "BallBalance"),
-          ("quadcopter", "Quadcopter")]
+          ("quadcopter", "Quadcopter"), ("franka_cube_stack", "FrankaCubeStack")]
 
 
 def register(*names: str):

@@ -253,6 +253,10 @@ class PPO:
             ep_ret, ep_len = ep_ret * (1.0 - d), ep_len * (1.0 - d)
             for k, v in zip(keys, (obs, action, logp, value, rew, done, mu, log_std)):
                 batch[k].append(v)
+            # the env's metrics, JAX `PPO._metric_rollout_outputs`: its
+            # extras["episode"] terms, then the two success channels
+            for k, v in extras.get("episode", {}).items():
+                metrics.setdefault(f"episode/{k}", []).append(torch.as_tensor(v, dtype=torch.float32))
             for k in ("true_objective", "consecutive_successes"):
                 if k in extras:
                     metrics.setdefault(k, []).append(extras[k].to(torch.float32).mean())

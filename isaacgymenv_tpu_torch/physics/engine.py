@@ -5,12 +5,13 @@ control period of `substeps` substeps through one of three paths, which
 `_use_fused` picks:
 - "mono": `fused.fused_substep`, one CUDA kernel for all substeps (B1), for
   scenes without pairs, tendons or `no_ground`, on the plane or on a
-  heightfield, with per-env friction or without, force sensors and a
-  per-body external wrench (`Control.body_wrench`) or without;
+  heightfield, with per-env friction or without, force sensors, gravity
+  compensation and a per-body external wrench (`Control.body_wrench`) or
+  without;
 - "split": `fused_split.split_substep`, a contacts kernel and a dynamics
   kernel per substep (B2 + B3), for scenes with pairs, tendons or
   `no_ground` within the split tables' caps, with world anchors, force
-  sensors and body wrenches or without;
+  sensors, gravity compensation and body wrenches or without;
 - None: the plain `_substep` loop below.
 A CUDA state on a kernel path launches the kernels; a CPU state runs their
 plain version, which is the `_substep` loop.
@@ -171,8 +172,8 @@ def _geom_world(model: SimModel, kin):
 
 
 def _contacts(model: SimModel, terrain, kin, slip_g, slip_p, h: float):
-    """Ground and pair contacts and world anchors at the poses of `kin`
-    (kinematics.fk).
+    """Ground and pair contacts, world anchors and gravity compensation at
+    the poses of `kin` (kinematics.fk).
 
     Returns (f_ext (N, nb, 6) world [moment, force] about each body origin,
     contact_force (N, nb, 3) of the ground and pair contacts, slip_g, slip_p)."""
@@ -198,7 +199,20 @@ def _contacts(model: SimModel, terrain, kin, slip_g, slip_p, h: float):
         body_cf = body_cf + cf_pair
     if model.anchor_body:
         f_ext = f_ext + contact_mod.anchor_forces(model, body_pos_w, R_w, body_lin_w, body_ang_w, h)
+    if model.body_gravcomp is not None:
+        f_ext = f_ext + gravcomp_wrench(model, R_w)
     return f_ext, body_cf, slip_g, slip_p
+
+
+def gravcomp_wrench(model: SimModel, R_w: torch.Tensor) -> torch.Tensor:
+    """Per-body gravity compensation (the asset's disable_gravity): the force
+    -gravcomp * m * g at the world COM `R_w com`, as a world [moment, force]
+    (N, nb, 6) about each body origin (JAX `engine._substep`'s gravcomp
+    block).  It is part of f_ext before the contact torque is taken."""
+    f_g = -(model.body_gravcomp * model.body_mass)[:, None] * model.gravity
+    f_g = f_g.expand(R_w.shape[:-1])
+    com_w = (R_w @ model.body_com.unsqueeze(-1)).squeeze(-1)
+    return torch.cat([torch.linalg.cross(com_w, f_g, dim=-1), f_g], dim=-1)
 
 
 def _dynamics(model: SimModel, kin, q, qd, ctrl: Control, f_ext, h: float):
@@ -233,8 +247,8 @@ def _substep(model: SimModel, terrain, q, qd, ctrl: Control, slip_g, slip_p, h: 
 
     Returns (q_new, qd_new, dof_force, contact_force, contact_torque, slip_g,
     slip_p, joint_wrench); joint_wrench is None without sensors.  The contact
-    torque is the moment of the contacts and anchors, without
-    `ctrl.body_wrench`.
+    torque is the moment of the contacts, anchors and gravity compensation,
+    without `ctrl.body_wrench`.
     """
     kin = kinematics.fk(model, q, qd)
     f_ext, body_cf, slip_g, slip_p = _contacts(model, terrain, kin, slip_g, slip_p, h)
@@ -263,7 +277,8 @@ def _check_supported(model: SimModel, terrain, kind: Optional[str], device_type:
     the plain loop there.  Force sensors run on B1 and on the split pair
     (B3's sensor output); on the card they raise off both.  World anchors
     run on the split pair and in the plain loop; B1 has no anchor mode yet,
-    so an anchored B1 scene raises on either device."""
+    so an anchored B1 scene raises on either device.  Gravity compensation
+    (`body_gravcomp`) runs on every path: B1, B2 and the plain loop."""
     per_env_friction = model.geom_friction.ndim == 2
     on_card = device_type != "cpu"
     off_b1 = on_card and kind != "mono"
@@ -275,7 +290,6 @@ def _check_supported(model: SimModel, terrain, kind: Optional[str], device_type:
         "containment-wall surfaces": any(k not in (0, 1, 2, 3) for k in model.surf_kind),
         "SDF colliders": model.n_sdf,
         "world anchors on B1": kind == "mono" and model.anchor_body,
-        "gravity compensation": model.body_gravcomp is not None,
         "force sensors off the kernels": on_card and kind is None and model.sensor_body,
     }
     missing = [k for k, v in unsupported.items() if v]
@@ -293,6 +307,8 @@ def _use_fused(model: SimModel, q: torch.Tensor) -> Optional[str]:
     H100 has no VMEM wall: here the scene's features decide.  B1's CUDA
     subset has no pairs, tendons or `no_ground`; scenes with any of them
     take B2 + B3 within the split tables' caps, and the plain loop above them.
+    Gravity compensation does not decide: both kernels have it (a per-body
+    table field, 0 where a body keeps its gravity).
     """
     from isaacgymenv_tpu_torch.physics import fused as fused_mod
     from isaacgymenv_tpu_torch.physics import fused_split as split_mod

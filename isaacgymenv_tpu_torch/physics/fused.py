@@ -14,7 +14,10 @@ a CPU state runs `fused_substep_plain`, the eager port of the XLA path
 kernel launches.  The kernel's optional modes are inputs, null when off: the
 held ground (`terrain_mode`), per-env friction (`fric_mode`) and the body
 wrenches (`wrench_mode`); its sensor output is written when the model has
-force sensors.  A scene may have no contact geoms (ng = 0).
+force sensors.  Gravity compensation (`body_gravcomp`) travels in the
+table: `gc_mass` (gravcomp x mass per body, 0 where a body keeps its
+gravity) and `com`, read by `gravcomp_wrench` of `csrc/substep_common.cuh`,
+which B2 shares.  A scene may have no contact geoms (ng = 0).
 """
 
 from __future__ import annotations
@@ -90,6 +93,8 @@ class FusedModel(ctypes.Structure):
         ("kn", ctypes.c_float), ("kd", ctypes.c_float), ("kt", ctypes.c_float),
         ("limit_k", ctypes.c_float), ("limit_d", ctypes.c_float), ("fric_eps", ctypes.c_float),
         ("max_angvel", ctypes.c_float), ("max_linvel", ctypes.c_float),
+        ("gc_mass", ctypes.c_float * MAX_BODIES),
+        ("com", ctypes.c_float * (MAX_BODIES * 3)),
     ]
 
 
@@ -98,8 +103,9 @@ def fused_structural_ok(model: SimModel, num_envs: int) -> bool:
     else takes the plain path.  The one per-env leaf the kernel takes is
     `geom_friction` (num_envs, ng) (`fric_mode`); every other model leaf must
     be shared by all envs.  Force sensors are an output of the kernel, up to
-    MAX_SENSORS bodies; body wrenches an input.  Features B1 has not yet
-    (anchors, ...) are refused before this by `engine._check_supported`."""
+    MAX_SENSORS bodies; body wrenches an input; gravity compensation a
+    table field.  Features B1 has not yet (anchors, ...) are refused before
+    this by `engine._check_supported`."""
     if num_envs < 1:
         return False
     if any(jt not in (JT_FREE, JT_REVOLUTE, JT_PRISMATIC, JT_FIXED) for jt in model.jtype):
@@ -178,6 +184,10 @@ def pack_model(model: SimModel) -> FusedModel:
         "geom_meff": c(model.geom_meff),
         "geom_meff_el": c(model.geom_meff if model.geom_meff_el is None else model.geom_meff_el),
         "gravity": c(model.gravity),
+        # gravity compensation: 0 where a body keeps its gravity; the product
+        # in fp32, as the plain version forms it
+        "gc_mass": [] if model.body_gravcomp is None else c(model.body_gravcomp) * mass,
+        "com": com,
     }
     for name, arr in floats.items():
         flat = np.asarray(arr, np.float32).ravel()

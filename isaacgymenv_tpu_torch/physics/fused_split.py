@@ -23,7 +23,9 @@ anchors; the contact torque it writes holds no wrench.  World anchors
 (`SimModel.anchor_body`, up to MAX_ANCHORS) travel in the table; B2 adds
 their spring-dampers after the pairs.  B3's sensor output: when the model
 has force sensors (`sensor_body`), the last substep's B3 launch writes each
-sensor body's inbound joint wrench from its ABA, as B1 does.
+sensor body's inbound joint wrench from its ABA, as B1 does.  Gravity
+compensation travels in the embedded `FusedModel` table (`gc_mass`, `com`);
+B2 adds it after the anchors, before the contact torque is written.
 """
 
 from __future__ import annotations
@@ -178,8 +180,9 @@ def split_substep_plain(tables: SplitTables, q, qd, pos_target, vel_target, effo
 
 def contacts_plain(tables: SplitTables, q, qd, slip_g, slip_p, h: float, body_wrench=None):
     """B2's plain version: (f_ext (N, nb, 6), contact_force, contact_torque, slip_g, slip_p);
-    the contact torque is the moment of the contacts and anchors; `body_wrench`
-    (N, nb, 6) is added to f_ext and not to the contact torque."""
+    the contact torque is the moment of the contacts, anchors and gravity
+    compensation; `body_wrench` (N, nb, 6) is added to f_ext and not to the
+    contact torque."""
     model = tables.model
     f_ext, cf, slip_g, slip_p = engine._contacts(model, None, kinematics.fk(model, q, qd), slip_g, slip_p, h)
     ct = f_ext[..., :3]

@@ -4,15 +4,17 @@
 
 For each ported slice (Anymal at 4096 envs, AnymalTerrain at 4096 on the
 full trimesh grid, ShadowHand at 16384, ShadowHandOpenAI_FF at 16384, Ant
-at 4096, Quadcopter at 8192, BallBalance at 4096, the widths chip_smoke.py
-drives; or only the tasks named), runs the chip_smoke.py acting step (normalize obs ->
+at 4096, Quadcopter at 8192, BallBalance at 4096, FrankaCubeStack at 8192,
+the widths chip_smoke.py drives; or only the tasks named), runs the
+chip_smoke.py acting step (normalize obs ->
 ActorCritic -> sample actions -> env.step) for N_STEPS timed steps and
 reports, with the card's name and power limit:
 1. synchronized phase times: every phase ends in torch.cuda.synchronize(),
    inclusive host wall ms per acting step of the policy, `env.step`,
    `engine.step` (kernels + FK refresh) and `engine.forward` (FK refresh;
    twice per env step, three times for AnymalTerrain, whose pushes refresh
-   the caches every step), with the calls per step;
+   the caches every step) and FrankaCubeStack's `osc` (its operational-space
+   control: an FK, a CRBA and two batched solves), with the calls per step;
 2. a torch.profiler window without synchronization: wall ms per step,
    device-busy ms per step (sum of kernel times), the idle share, CUDA
    kernel launches per step, and the kernels with the most device time.
@@ -20,8 +22,9 @@ Then the training epoch of each trained slice, after one warm-up epoch:
 Ant at 4096 envs (`learning/ppo.py`, the configured horizon of 16 steps, 2
 minibatches x 4 mini-epochs), ShadowHandOpenAI_FF at 16384 (horizon 8, 8
 minibatches x 8 mini-epochs for the actor and again for the central
-value), Quadcopter at 8192 (horizon 8, 4 minibatches x 8 mini-epochs) and
-BallBalance at 4096 (horizon 16, 4 minibatches x 8 mini-epochs);
+value), Quadcopter at 8192 (horizon 8, 4 minibatches x 8 mini-epochs),
+BallBalance at 4096 (horizon 16, 4 minibatches x 8 mini-epochs) and
+FrankaCubeStack at 8192 (horizon 16, 16 minibatches x 5 mini-epochs);
 synchronized ms per epoch of the rollout, GAE and update over
 TRAIN_EPOCHS epochs, and a profiler window over one epoch (device busy,
 idle share, kernel launches).
@@ -44,8 +47,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # (task, envs, make() overrides), as chip_smoke.py
 SLICES = (("Anymal", 4096, {}), ("AnymalTerrain", 4096, {"env.terrain.terrainType": "trimesh"}),
           ("ShadowHand", 16384, {}), ("ShadowHandOpenAI_FF", 16384, {}), ("Ant", 4096, {}),
-          ("Quadcopter", 8192, {}), ("BallBalance", 4096, {}))
-TRAINED = (("Ant", 4096), ("ShadowHandOpenAI_FF", 16384), ("Quadcopter", 8192), ("BallBalance", 4096))
+          ("Quadcopter", 8192, {}), ("BallBalance", 4096, {}), ("FrankaCubeStack", 8192, {}))
+TRAINED = (("Ant", 4096), ("ShadowHandOpenAI_FF", 16384), ("Quadcopter", 8192), ("BallBalance", 4096),
+           ("FrankaCubeStack", 8192))
 N_STEPS = 20
 TRAIN_EPOCHS = 5
 
@@ -89,6 +93,8 @@ def profile(task: str, n_envs: int, overrides: dict) -> dict:
     engine.step = timed("engine.step", engine.step)
     engine.forward = timed("engine.forward", engine.forward)
     timed_act, timed_env_step = timed("policy", act), timed("env.step", env.step)
+    if hasattr(env, "_osc_torques"):  # FrankaCubeStack's operational-space control, inside env.step
+        env._osc_torques = timed("osc", env._osc_torques)
     obs = obs_dict["obs"]
     with torch.no_grad():
         for i in range(3 + N_STEPS):
@@ -98,6 +104,7 @@ def profile(task: str, n_envs: int, overrides: dict) -> dict:
             state, obs_dict, *_r = timed_env_step(state, timed_act(obs))
             obs = obs_dict["obs"]
     engine.step, engine.forward = originals
+    env.__dict__.pop("_osc_torques", None)  # the profiler window runs unsynchronized
     phases = {k: 1e3 * v / N_STEPS for k, v in totals.items()}
     for k, v in phases.items():
         print(f"{task} synchronized {k}: {v:.3f} ms per acting step ({calls[k] / N_STEPS:g} calls per step)")

@@ -57,7 +57,7 @@ def test_make_without_device_needs_cuda():
     ("task", "AnymalTerrain"), ("train", "AnymalTerrainPPO"), ("task", "Ant"), ("train", "AntPPO"),
     ("task", "ShadowHandOpenAI_LSTM"), ("task", "ShadowHandOpenAI_FF"), ("train", "ShadowHandPPOAsymm"),
     ("train", "ShadowHandOpenAI_FFPPO"), ("task", "BallBalance"), ("train", "BallBalancePPO"), ("task", "Quadcopter"),
-    ("train", "QuadcopterPPO"),
+    ("train", "QuadcopterPPO"), ("task", "FrankaCubeStack"), ("train", "FrankaCubeStackPPO"),
 ])
 def test_cfg_copy_parses_like_the_jax_package(kind, name):
     ours = port_config.load_yaml(os.path.join(port_config.CFG_ROOT, kind, f"{name}.yaml"))

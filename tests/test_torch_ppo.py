@@ -431,7 +431,7 @@ def test_learner_config_and_refusals():
 
 @pytest.mark.parametrize("task,name", [
     ("Anymal", None), ("AnymalTerrain", None), ("ShadowHand", None), ("ShadowHand", "ShadowHandPPOAsymm"),
-    ("ShadowHandOpenAI_FF", None), ("BallBalance", None), ("Quadcopter", None),
+    ("ShadowHandOpenAI_FF", None), ("BallBalance", None), ("Quadcopter", None), ("FrankaCubeStack", None),
 ])
 def test_learner_config_matches_jax(task, name):
     """The learner reads each train config the port ships (Ant's in

@@ -479,11 +479,12 @@ def test_dispatch_rule(envs):
     over = fused_split.MAX_PAIRS // m.n_pairs + 1
     many_pairs = dataclasses.replace(m, pair_geom=m.pair_geom * over, pair_surf=m.pair_surf * over)
     assert engine._use_fused(many_pairs, q_hand) is None
-    # features neither path has raise; sensors run on the split pair (B3's sensor output)
+    # features neither path has raise; sensors run on the split pair (B3's
+    # sensor output), and so does gravity compensation (B2's gravcomp mode)
     ctrl = engine.Control.zero(m, N)
     sim = types.make_zero_state(m, N)
-    with pytest.raises(NotImplementedError, match="not ported yet: gravity compensation"):
-        engine.step(dataclasses.replace(m, body_gravcomp=torch.ones(m.nb)), None, sim, ctrl, 0.01, 2)
+    compensated = engine.step(dataclasses.replace(m, body_gravcomp=torch.ones(m.nb)), None, sim, ctrl, 0.01, 2)
+    assert not torch.equal(compensated.q, engine.step(m, None, sim, ctrl, 0.01, 2).q)
     sensed = engine.step(dataclasses.replace(m, sensor_body=(7,)), None, sim, ctrl, 0.01, 2)
     assert tuple(sensed.joint_wrench.shape) == (N, 1, 6)
     for key, value in (("env.observationType", "full"), ("env.objectType", "egg")):
